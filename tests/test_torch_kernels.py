@@ -1,4 +1,4 @@
-"""The wrappers of the port's CUDA kernels (K1-K4).
+"""The wrappers of the port's CUDA kernels (K1-K4 and the generic tier).
 
 On the CPU a wrapper takes the plain version, and only because its tensor
 lies on the CPU; bad dtypes, shapes and combinations raise.  The cases
@@ -80,6 +80,53 @@ def test_wrappers_reject_bad_inputs(ctx):
         sk.round_eval_gruen(ctx, tabs, a[:4], [(0, 1, 0, 1)], 4)  # K4 takes 1-3 factors
 
 
+def test_generic_wrappers_take_the_plain_versions_on_cpu(ctx):
+    tabs = _residues(ctx, (4, 64), 20)
+    r = fm.to_numpy(_residues(ctx, (1,), 21))[0]
+    terms = [(0, 1, 2, 3, 0, 1, 2), (3,)]
+    _cuda.reset_launches()
+    assert torch.equal(sk.round_eval_generic(ctx, tabs, terms, 9), sk.round_eval_plain(ctx, tabs, terms, 9))
+    folded, sums = sk.fold_round_eval(ctx, tabs, r, terms, 8)
+    assert torch.equal(folded, sk.fold_plain(ctx, tabs, r))
+    assert torch.equal(sums, sk.round_eval_plain(ctx, folded, terms, 8))
+    assert all(v == 0 for v in _cuda.LAUNCHES.values())
+    assert _cuda._lib is None
+
+
+def test_generic_wrappers_reject_bad_inputs(ctx):
+    tabs = _residues(ctx, (2, 8), 22)
+    r = fm.int_to_words(1, 8)
+    with pytest.raises(ValueError):
+        sk.round_eval_generic(ctx, tabs, [(0, 2)], 3)  # no table 2
+    with pytest.raises(ValueError):
+        sk.round_eval_generic(ctx, tabs, [(0,), ()], 3)  # an empty term
+    with pytest.raises(ValueError):
+        sk.round_eval_generic(ctx, tabs, [(0,)], 0)
+    with pytest.raises(ValueError):
+        sk.round_eval_generic(ctx, tabs, [(0,)] * 33, 2)  # over the launch's term slots
+    with pytest.raises(ValueError):
+        sk.fold_round_eval(ctx, tabs[:, :6], r, [(0,)], 2)  # not a multiple of 4
+    with pytest.raises(TypeError):
+        sk.fold_round_eval(ctx, tabs.to(torch.int64), r, [(0,)], 2)
+    big = fm.device_field(FieldConfig((1 << 575) + 1515, 9))  # 18 words: no kernel width
+    with pytest.raises(ValueError):
+        sk.round_eval_generic(big, _residues(big, (1, 4), 23), [(0,)], 2)
+
+
+def test_generic_scope():
+    assert sk.generic_supported([tuple(range(8))], 9, 16)
+    assert sk.generic_supported([(0,), (0, 1, 2, 3, 4)], 6, 8)
+    assert sk.generic_supported([(0, 1)] * 32, 56, 8)
+    assert not sk.generic_supported([(0, 1)] * 32, 57, 8)  # shared memory
+    assert not sk.generic_supported([(0,)], 2, 18)
+    assert not sk.generic_supported([(0,) * 129, (1,) * 128], 2, 8)  # 257 factor slots
+    assert sk.generic_smem_bytes(1, 8, 8) == 8 * 8 * 8 + 8 * 8 * 64 * 4
+    # the limits come from the header generic.cu includes
+    assert sk.GENERIC_LIMITS == {"ZT_GEN_BLOCK": 64, "ZT_GEN_MAX_TERMS": 32,
+                                 "ZT_GEN_MAX_ENTRIES": 256, "ZT_GEN_SUM_BYTES": 8,
+                                 "ZT_GEN_PROD_BYTES": 4, "ZT_SMEM_LIMIT": 232_448}
+
+
 def test_support_predicates_follow_the_reference():
     assert sk.classic_supported([(0, 3), (1, 2, 3)], 8)
     assert not sk.classic_supported([(0,)], 8) and not sk.classic_supported([(0, 1)], 18)
@@ -146,4 +193,38 @@ def test_cuda_tensors_launch_the_kernels(cuda_device, ctx):
     sk.fold(ctx, tabs, fm.int_to_words(3, 8))
     sk.round_eval(ctx, tabs, [(0, 1)], 3)
     sk.round_eval_gruen(ctx, tabs, a[:32].contiguous(), [(0,), (1,)], 3)
-    assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 2}
+    assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 2,
+                              "round_eval_generic": 0, "fold_round_eval": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n64", [((1 << 255) + 95, 4), ((1 << 256) - 189, 4),
+                                   ((1 << 127) - 1, 2), ((1 << 383) + 369, 6),
+                                   ((1 << 511) + 187, 8)])
+@pytest.mark.parametrize("n_pairs", [1, 197, 4096, 135_169])
+def test_generic_kernels_match_plain_on_cuda(cuda_device, q, n64, n_pairs):
+    """Every factor count 1-8, 9 points, repeated factors, several terms, and
+    pair counts that leave lanes and blocks idle; the last one is one pair
+    more than a grid's threads, so a thread takes a second grid stride."""
+    c = fm.device_field(FieldConfig(q, n64))
+    tabs = _residues(c, (7, 4 * n_pairs), 24, cuda_device)
+    r = fm.to_numpy(_residues(c, (1,), 25))[0]
+    combs = [([tuple(range(7))], 8), ([(0, 1, 2, 3, 5), (4, 5)], 6), ([(2,)], 2),
+             ([(6,), (0, 0), (1, 2, 3), (0, 1, 2, 3), (4, 5, 6, 0, 1), (1,) * 6,
+               (2, 3, 4, 5, 6, 0, 1), tuple(range(7)) + (3,)], 9)]
+    for terms, pts in combs:
+        assert torch.equal(sk.round_eval_generic(c, tabs, terms, pts),
+                           sk.round_eval_plain(c, tabs, terms, pts))
+        folded, sums = sk.fold_round_eval(c, tabs, r, terms, pts)
+        want_f, want_s = sk.fold_round_eval_plain(c, tabs, r, terms, pts)
+        assert torch.equal(folded, want_f) and torch.equal(sums, want_s)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_generic_kernels(cuda_device, ctx):
+    tabs = _residues(ctx, (3, 256), 26, cuda_device)
+    _cuda.reset_launches()
+    sk.round_eval_generic(ctx, tabs, [(0, 1, 2, 0, 1), (2,)], 6)
+    sk.fold_round_eval(ctx, tabs, fm.int_to_words(3, 8), [(0, 1, 2, 0, 1), (2,)], 6)
+    assert _cuda.LAUNCHES["round_eval_generic"] == 1 and _cuda.LAUNCHES["fold_round_eval"] == 1

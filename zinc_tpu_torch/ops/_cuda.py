@@ -1,9 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources in ``zinc_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at the first
-kernel call (never at import), into ``zinc_tpu_torch/_build/`` under a name
-that hashes the sources, and loaded with ``ctypes``.  Every C entry point
+``sm_90a``, one process per source, all started together, and linked into
+one shared library with a plain C interface, at the first kernel call (never
+at import), into ``zinc_tpu_torch/_build/`` under a name that hashes the
+sources, and loaded with ``ctypes``.  ``BUILD["ptxas"]`` keeps each
+kernel's register and spill report (``-Xptxas -v``).  Every C entry point
 returns ``cudaGetLastError()``; :func:`check` raises when it is not 0.
 
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one where it
@@ -27,11 +29,12 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mont_mul.cu", "sumcheck.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu")
+HEADERS = ("field.cuh", "generic.cuh")
 
-LAUNCHES = {"mont_mul": 0, "fold": 0, "round_eval": 0, "round_eval_gruen": 0}
-BUILD = {"seconds": None, "path": None, "cached": None}
+LAUNCHES = {"mont_mul": 0, "fold": 0, "round_eval": 0, "round_eval_gruen": 0,
+            "round_eval_generic": 0, "fold_round_eval": 0}
+BUILD = {"seconds": None, "path": None, "cached": None, "ptxas": ""}
 
 _lock = threading.Lock()
 _lib = None
@@ -71,16 +74,29 @@ def _build() -> Path:
         BUILD.update(seconds=0.0, path=str(out), cached=True)
         return out
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-    ] + [str(SRC_DIR / s) for s in SOURCES]
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs = [out.with_suffix(f".{os.getpid()}.{Path(src).stem}.o") for src in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    try:
+        procs = [
+            subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(o), str(SRC_DIR / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, o in zip(SOURCES, objs)
+        ]
+        errs = [p.communicate()[1] for p in procs]  # waits for every compile
+        failed = [f"{src} ({p.returncode}):\n{err[-4000:]}"
+                  for src, p, err in zip(SOURCES, procs, errs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run([_nvcc(), *flags, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
-    BUILD.update(seconds=time.perf_counter() - t0, path=str(out), cached=False)
+    BUILD.update(seconds=time.perf_counter() - t0, path=str(out), cached=False, ptxas="".join(errs))
     return out
 
 
@@ -97,8 +113,13 @@ def lib():
             l.zt_eval_blocks.argtypes = [_I64]
             l.zt_round_eval.argtypes = [_P, _P, _I64, _I64, _P, _I, _I, _I, _P, _U32, _P]
             l.zt_round_eval_gruen.argtypes = [_P, _P, _I64, _I64, _P, _P, _I, _I, _I, _P, _U32, _P]
+            l.zt_gen_blocks.argtypes = [_I64]
+            l.zt_round_eval_generic.argtypes = [_P, _P, _I64, _I64, _P, _P, _I, _I, _I, _P, _U32, _P]
+            l.zt_fold_round_eval.argtypes = [_P, _P, _P, _I, _I64, _P, _P, _P, _I, _I, _I, _P,
+                                             _U32, _P]
             for fn in (l.zt_mont_mul, l.zt_fold, l.zt_eval_blocks, l.zt_round_eval,
-                       l.zt_round_eval_gruen):
+                       l.zt_round_eval_gruen, l.zt_gen_blocks, l.zt_round_eval_generic,
+                       l.zt_fold_round_eval):
                 fn.restype = _I
             _lib = l
     return _lib

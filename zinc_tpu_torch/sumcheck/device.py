@@ -17,6 +17,10 @@ are those of the classic sumcheck.
 
 Rounds whose table has at most ``HOST_TAIL`` entries finish on the host
 with the reference's host prover; transcripts do not depend on the split.
+
+A combination outside K3's scope (a term of 1 or more than 4 factors, or
+more than 5 points), when Gruen does not apply, goes whole to the generic
+tier, ``executor.py`` (``zinc_tpu/sumcheck/device_fs.py:284,332-351``).
 """
 
 from __future__ import annotations
@@ -30,8 +34,7 @@ from ..fields.montgomery import device_field
 from ..ops.field_kernels import mont_mul
 from ..poly.device import eq_levels, fps_to_limbs, fps_to_tensor, tensor_to_fps
 from . import kernels
-
-HOST_TAIL = 64  # tables of at most this many entries finish on the host
+from .executor import HOST_TAIL, make_executor, prove_with_executor, round_values
 
 
 def wants_gruen(cfg: FieldConfig, comb, eq_idx: int, b: int) -> bool:
@@ -47,23 +50,12 @@ def _eq_factor(beta: Fp, r: Fp) -> Fp:
     return (one - beta) * (one - r) + beta * r
 
 
-def round_values(cfg: FieldConfig, sums: torch.Tensor, coeffs, gruen_factor=None) -> list[Fp]:
-    """Round evaluations s(0..d) from the kernels' per-term sums
-    (n_terms, d+1, n32): Σ_k coeff_k·(sum mod q), times pref·c_j(t) with
-    c_j(t) = (1−β_j)(1−t) + β_j·t when ``gruen_factor`` = (pref, β_j)."""
-    res = kernels.sums_to_ints(device_field(cfg), sums)
-    one = cfg.one()
-    evals = []
-    for t in range(res.shape[1]):
-        acc = cfg.zero()
-        for k, c in enumerate(coeffs):
-            acc = acc + c * cfg.fp_from_mont(res[k, t])
-        if gruen_factor is not None:
-            pref, bj = gruen_factor
-            tf = cfg.fp(t)
-            acc = pref * ((one - bj) * (one - tf) + bj * tf) * acc
-        evals.append(acc)
-    return evals
+def uses_generic(cfg: FieldConfig, comb, degree: int) -> bool:
+    """True when the classic rounds send this comb to the generic tier:
+    some term is outside K3's scope (``device_fs.py:284``), or the degree
+    needs more points than K3 takes."""
+    idx_terms = [tuple(idxs) for _, idxs in comb]
+    return not kernels.classic_supported(idx_terms, 2 * cfg.n64) or degree + 1 > kernels.MAX_POINTS
 
 
 def prove_as_subprotocol_device(
@@ -78,8 +70,14 @@ def prove_as_subprotocol_device(
     """Transcript-identical sumcheck.  Returns (proof, randomness, finals):
     finals are the fully folded values of every MLE (the eq MLE last when
     ``eq_beta`` is given)."""
-    _absorb_nvars_degree(transcript, nvars, degree, cfg)
     ctx = device_field(cfg)
+    if ctx.n32 > kernels.MAX_WORDS:
+        raise ValueError(f"no round kernels for {ctx.n32}-word fields (at most {kernels.MAX_WORDS})")
+    if eq_beta is None and uses_generic(cfg, comb, degree):
+        ex = make_executor(cfg, tables, degree, comb)
+        proof, randomness = prove_with_executor(transcript, ex, nvars, degree, cfg)
+        return proof, randomness, ex.final_values()
+    _absorb_nvars_degree(transcript, nvars, degree, cfg)
     n_pts = degree + 1
     b = tables.shape[1]
     assert b == 1 << nvars, (b, nvars)
@@ -92,8 +90,6 @@ def prove_as_subprotocol_device(
         rests = [t[:-1] for t in idx_terms]
         levels = eq_levels(ctx, fps_to_tensor(eq_beta, cfg, tables.device))
         pref = cfg.one()
-    elif not kernels.classic_supported(idx_terms, ctx.n32):
-        raise ValueError(f"comb {idx_terms} is outside the round kernels' scope")
 
     proof: list[list[Fp]] = []
     randomness: list[Fp] = []

@@ -1,27 +1,38 @@
-"""K2-K4, the sumcheck round kernels, with their plain PyTorch versions.
+"""The sumcheck round kernels, with their plain PyTorch versions.
 
-* K2 :func:`fold` replaces ``zinc_tpu/sumcheck/mxu_exec.py:_fold_lm``.
-* K3 :func:`round_eval` replaces ``mxu_exec.py:_eval_lm`` (classic rounds).
-* K4 :func:`round_eval_gruen` replaces ``mxu_exec.py:_eval_lm_gruen``
-  (eq-factorized rounds).
+* :func:`fold` replaces ``zinc_tpu/sumcheck/mxu_exec.py:_fold_lm`` (K2), and
+  at other shapes ``zinc_tpu/ops/pallas_field.py:mont_fold_pallas`` (K6) and
+  ``zinc_tpu/sumcheck/pallas_exec.py:_fold_fixed`` (K8).
+* :func:`round_eval` replaces ``mxu_exec.py:_eval_lm`` (K3, classic rounds).
+* :func:`round_eval_gruen` replaces ``mxu_exec.py:_eval_lm_gruen`` (K4,
+  eq-factorized rounds).
+* :func:`round_eval_generic` replaces ``pallas_field.py:round_eval_pallas``
+  (K7) and ``pallas_exec.py:_eval_fixed`` (K9): any combination, the
+  generic tier.
+* :func:`fold_round_eval` replaces ``pallas_exec.py:_fold_eval_fixed``
+  (K10): the fold and the generic evaluation in one launch.
 
-The CUDA sources are ``csrc/sumcheck.cu``; its header note says what bounds
-each kernel on the H100 and what the design does about it.  Tables are
-(n_tables, B, n32) int32 tensors in natural order: a round pairs entries
-(2p, 2p+1).  K2 writes a fresh (n_tables, B/2, n32) output.
+The CUDA sources are ``csrc/sumcheck.cu`` (fold, K3, K4) and
+``csrc/generic.cu``; their header notes say what bounds each kernel on the
+H100 and what the design does about it.  Tables are (n_tables, B, n32)
+int32 tensors in natural order: a round pairs entries (2p, 2p+1).  A fold
+writes a fresh (n_tables, B/2, n32) output.
 
-K3/K4 evaluate one term of the combination per launch and return, per
-point t, the exact sums of the term's products over all pairs as int64
-word columns (lazy: a word column may exceed 2^32).  Those sums are linear,
-so the term's coefficient, the reduction mod q and, for K4, the Gruen
-factor pref·c_j(t) are applied afterwards (``sumcheck/device.py``), on the
-host, where the Fiat-Shamir transcript needs the round values anyway.
+The evaluations return, per term and point t, the exact sums of the term's
+products over all pairs as int64 word columns (lazy: a word column may
+exceed 2^32).  Those sums are linear, so the term's coefficient, the
+reduction mod q and, for K4, the Gruen factor pref·c_j(t) are applied
+afterwards (``sumcheck/executor.py:round_values``), on the host, where the
+Fiat-Shamir transcript needs the round values anyway.  K3 and K4 launch once
+per term; the generic kernels once for the whole combination.
 
 Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -33,6 +44,16 @@ from ..ops import _cuda
 MAX_FACTORS = 4  # factors per term the kernels take (K4: plus the eq weight)
 MAX_POINTS = 5  # evaluation points per round (degree ≤ 4)
 MAX_WORDS = 16  # ≤ 512-bit fields, as mxu_exec.mxu_supported
+
+
+def _header_defines(name: str) -> dict[str, int]:
+    """The integer ``#define``s of a header in ``csrc/``."""
+    text = (_cuda.SRC_DIR / name).read_text()
+    return {k: int(v) for k, v in re.findall(r"^#define (\w+) (\d+)$", text, re.M)}
+
+
+# the generic kernels' scope, as csrc/generic.cuh states it for both sides
+GENERIC_LIMITS = _header_defines("generic.cuh")
 
 
 def classic_supported(idx_terms, n32: int) -> bool:
@@ -63,6 +84,38 @@ def _check_terms(terms, n_tables: int, max_len: int, n_pts: int) -> None:
             raise ValueError(f"bad term {t} for {n_tables} tables")
     if not 1 <= n_pts <= MAX_POINTS:
         raise ValueError(f"n_pts {n_pts} outside 1..{MAX_POINTS}")
+
+
+def generic_smem_bytes(n_terms: int, n_pts: int, n32: int) -> int:
+    """Shared memory of one generic block (``generic.cu:gen_smem_bytes``)."""
+    lim = GENERIC_LIMITS
+    return (n_terms * n_pts * n32 * lim["ZT_GEN_SUM_BYTES"]
+            + n_pts * n32 * lim["ZT_GEN_BLOCK"] * lim["ZT_GEN_PROD_BYTES"])
+
+
+def generic_supported(idx_terms, n_pts: int, n32: int) -> bool:
+    """What the generic kernels take: any terms of ≥ 1 factor over ≤ 512-bit
+    fields, as long as the combination fits the launch's parameter block and
+    a block's sums and partial products fit its shared memory (at 256 bits,
+    32 terms at 56 points)."""
+    lim = GENERIC_LIMITS
+    return (
+        n32 <= MAX_WORDS
+        and 1 <= len(idx_terms) <= lim["ZT_GEN_MAX_TERMS"]
+        and all(len(t) >= 1 for t in idx_terms)
+        and sum(map(len, idx_terms)) <= lim["ZT_GEN_MAX_ENTRIES"]
+        and n_pts >= 1
+        and generic_smem_bytes(len(idx_terms), n_pts, n32) <= lim["ZT_SMEM_LIMIT"]
+    )
+
+
+def _check_generic(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int) -> None:
+    if not generic_supported(terms, n_pts, ctx.n32):
+        raise ValueError(
+            f"terms {terms} at {n_pts} points and {ctx.n32} words are outside the generic kernels' scope"
+        )
+    if any(not 0 <= i < tables.shape[0] for t in terms for i in t):
+        raise ValueError(f"bad terms {terms} for {tables.shape[0]} tables")
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +229,71 @@ def round_eval_gruen(
     if not tables.is_cuda:
         return round_eval_gruen_plain(ctx, tables, e_level, terms, n_pts)
     return _eval_launch("round_eval_gruen", ctx, tables, terms, n_pts, e_level)
+
+
+# ---------------------------------------------------------------------------
+# the generic tier: K7/K9 round_eval_generic, K10 fold_round_eval
+# ---------------------------------------------------------------------------
+
+
+def fold_round_eval_plain(ctx, tables, r, terms, n_pts):
+    folded = fold_plain(ctx, tables, r)
+    return folded, round_eval_plain(ctx, folded, terms, n_pts)
+
+
+def _comb_arrays(terms):
+    start = np.cumsum([0] + [len(t) for t in terms]).astype(np.int32)
+    return start, np.asarray([i for t in terms for i in t], dtype=np.int32)
+
+
+def _generic_launch(name, ctx, tables, terms, n_pts, pairs, args_mid):
+    """Launch ``zt_<name>`` on ``pairs`` eval pairs; returns the summed
+    (n_terms, n_pts, n32) int64 sums."""
+    _cuda.require_kernel_words(ctx.n32)
+    lib = _cuda.lib()
+    n = ctx.n32
+    partial = torch.empty((lib.zt_gen_blocks(pairs), len(terms) * n_pts * n), dtype=torch.int64,
+                          device=tables.device)
+    start, fac = _comb_arrays(terms)
+    q = _cuda.host_words(ctx.q)
+    rc = getattr(lib, "zt_" + name)(
+        partial.data_ptr(), *args_mid, start.ctypes.data, fac.ctypes.data, len(terms), n_pts, n,
+        q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
+    )
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return partial.sum(dim=0).reshape(len(terms), n_pts, n)
+
+
+def round_eval_generic(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int) -> torch.Tensor:
+    """Round sums of any combination: (n_terms, n_pts, n32) int64 word
+    columns of Σ_p Π_{k∈term} M_k(t, p), t = 0..n_pts−1 (the function of
+    :func:`round_eval`, for terms of any length, in one launch)."""
+    _check_tables(ctx, tables)
+    _check_generic(ctx, tables, terms, n_pts)
+    if not tables.is_cuda:
+        return round_eval_plain(ctx, tables, terms, n_pts)
+    b = tables.shape[1]
+    return _generic_launch("round_eval_generic", ctx, tables, terms, n_pts, b // 2,
+                           (tables.data_ptr(), b, b // 2))
+
+
+def fold_round_eval(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray, terms, n_pts: int):
+    """Fold every table by r (as :func:`fold`) and evaluate the combination
+    over the folded pairs (as :func:`round_eval_generic`) in one launch.
+    Returns (folded (n_tables, B/2, n32), sums (n_terms, n_pts, n32))."""
+    _check_tables(ctx, tables)
+    _check_generic(ctx, tables, terms, n_pts)
+    if tables.shape[1] % 4:
+        raise ValueError(f"tables: length {tables.shape[1]} is not a multiple of 4")
+    if not tables.is_cuda:
+        return fold_round_eval_plain(ctx, tables, r, terms, n_pts)
+    n_tab, b, n = tables.shape
+    out = torch.empty((n_tab, b // 2, n), dtype=torch.int32, device=tables.device)
+    rw = _cuda.host_words(r)
+    sums = _generic_launch("fold_round_eval", ctx, tables, terms, n_pts, b // 4,
+                           (out.data_ptr(), tables.data_ptr(), n_tab, b, rw.ctypes.data))
+    return out, sums
 
 
 def sums_to_ints(ctx: DeviceField, sums: torch.Tensor) -> np.ndarray:
