@@ -4,17 +4,24 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
-0. the card (nvidia-smi name and power limit), torch/CUDA versions, the
-   kernels' build time and registers, and a pinned native thread count;
+0. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
+   kernels' build: the 6-, 8- and 16-word libraries (n64 = 3, 4, 8), every
+   nvcc process at once, with each kernel's registers and spills, and the
+   IMADs in the SASS of each kernel (mont_mul_kernel's: one product);
 1. each CUDA kernel against its plain PyTorch version at the shapes the
-   paths below give it (2^20 tables, and path B's last fold at 7 × 128):
-   exactly equal (every value is an integer residue), with both times
-   (CUDA events, median of 7 kernel and 3 plain runs); then the generic
-   eval against K3 at K3's shape, equal sums and both times;
+   paths below give it (2^20 tables at 256 bits, path B's last fold at
+   7 × 128) and at n64 = 3 (2^16 entries): exactly equal (every value is
+   an integer residue), with its device-only time (CUDA events around 20
+   back-to-back wrapper calls), its single-launch time (median of 7), the
+   plain time (median of 3) and its bound
+   (zinc_tpu_torch/benches/bench_kernels.py); then the generic eval against
+   K3 and K4 at their shapes, equal sums and both device-only times;
 2. 2^10: the port's prove reproduces tests/golden/proof_2p10.bin byte for
    byte through the kernels, its verifier accepts it, and both tamper
    probes are rejected; every kernel of the dummy-R1CS path launched, and
-   none of the generic tier;
+   none of the generic tier.  Then the 2^8 dummy R1CS over a 192-bit field
+   (n64 = 3) through the kernels: the proof hashes to N64_3_SHA256 (the JAX
+   host prover's bytes, pinned by tests/test_torch_e2e.py) and verifies;
 3. 2^20 (seed 5, the production configuration): one prove and one verify
    through ZincProver/ZincVerifier, with the launch counts of that run,
    the stage walls, the proof size and the peak device memory; the
@@ -29,17 +36,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 6. path B, zinc_tpu_torch.benches.bench_sumcheck at 2^20 (7 factors,
    degree 7): prove and verify times, accepted by the host verifier.
 
-The line before the last is a JSON object with one entry per kernel, its
-launches summed over the three 2^20 runs (phase 3, path A at 2^20, path B's
-timed prove), each counted from 0; the 2^10 runs' launches are logged on
-their own lines.  The last line is the JSON result object.
+The native runtime runs at its default thread count.  The line before the
+last is a JSON object with one entry per kernel: its launches summed over
+the three 2^20 runs (phase 3, path A at 2^20, path B's timed prove), each
+counted from 0, and the numbers of its first phase-1 case; the 2^10 runs'
+launches are logged on their own lines.  The last line is the JSON result
+object.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-import os
 import random
 import re
 import subprocess
@@ -78,18 +86,22 @@ PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS
 # sha256 of the path A proof at 2^10 (seed 1234): the JAX package's host
 # prover gives these bytes (tests/test_torch_generic.py holds the two equal)
 PATH_A_SHA256_2P10 = "39ecc9b919b83f83f3831af319fa005ee7a7fcd766535b59caa0a115c79e0505"
+# (n, seed) of the dummy R1CS proved over a 192-bit field (n64 = 3), and the
+# sha256 of the JAX host prover's proof (tests/test_torch_e2e.py holds the two equal)
+N64_3_CASE = (1 << 8, 1234)
+N64_3_SHA256 = "facb3c5b1a8356f5f60363993fc196150c9ceecfeedf8cf32fe1dc4a5551bf8a"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def setup(n: int, seed: int):
+def setup(n: int, seed: int, n64: int = 4):
     import zinc_tpu_torch as zt
 
     _, ccs, statement, wit = zt.dummy_ccs_of_size(n, random.Random(seed), int_bits=62)
     ztypes = zt.ZipTypes(1)
-    cfg = zt.draw_random_field(statement.public_input, zt.KeccakTranscript(), ztypes.n_words, 4)
+    cfg = zt.draw_random_field(statement.public_input, zt.KeccakTranscript(), ztypes.n_words, n64)
     return ccs, statement, wit, ztypes, cfg
 
 
@@ -100,7 +112,7 @@ def degree4_fixture(n: int, seed: int, ccs_mod=None):
     E's entries fit in int64.  ``ccs_mod`` is the ccs module to build it
     from (the port's host layer by default; a test passes zinc_tpu.ccs)."""
     if ccs_mod is None:
-        from zinc_tpu_torch._host import ccs as ccs_mod
+        from zinc_tpu_torch import ccs as ccs_mod
 
     rng = random.Random(seed)
     z = [rng.randrange(-(1 << 15), 1 << 15) for _ in range(n)]
@@ -114,24 +126,19 @@ def degree4_fixture(n: int, seed: int, ccs_mod=None):
     return ccs, statement, ccs_mod.Witness(w_ccs=z[2:])
 
 
-def pcs_batch_sizes(n: int) -> list[int]:
-    """Paths the verifier hands the native runtime at size n (leaf hashes
-    and Merkle folds alike): column openings × PCS rows."""
-    from zinc_tpu_torch._host.zip.code import DefaultLinearCodeSpec, _row_len_for
-
-    rows = max(1, n // _row_len_for(n))
-    return [DefaultLinearCodeSpec().num_column_opening() * rows]
-
-
 # ---------------------------------------------------------------------------
 # phase 0
 # ---------------------------------------------------------------------------
 
+BUILD_WIDTHS = (6, 8, 16)  # n64 = 3 (phases 1, 2), 4 (every path), 8 (registers only)
 
-def phase0(sizes: list[int]) -> None:
+
+def phase0() -> dict:
+    """The card and the build; returns the card's name, power limit and
+    maximum SM clock (the bounds' clock)."""
     import torch
 
-    from zinc_tpu_torch.native_threads import safe_native_threads
+    from zinc_tpu_torch.benches.bench_kernels import card
     from zinc_tpu_torch.ops import _cuda
 
     smi = subprocess.run(
@@ -139,20 +146,39 @@ def phase0(sizes: list[int]) -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    # native/zinc_native.cpp:38-56 drops the tail of a batch at some thread
-    # counts (a valid proof is then rejected): pin a count that covers every
-    # batch this run hands the native runtime, before any native call
-    batches = sorted({b for n in sizes for b in pcs_batch_sizes(n)})
-    nt = safe_native_threads(batches, os.cpu_count() or 1)
-    os.environ["ZINC_TPU_NATIVE_THREADS"] = str(nt)
-    log(f"native threads {nt} (batches {batches})")
+    info = card()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}, "
+        f"max SM clock {info['max_sm_mhz']:.0f} MHz")
     t0 = time.perf_counter()
-    _cuda.lib()
-    log(f"kernel build {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_cuda.BUILD['seconds']:.1f} s, cached={_cuda.BUILD['cached']})")
-    for line in ptxas_summary(_cuda.BUILD["ptxas"]):
-        log(f"[ptxas] {line}")
+    _cuda.build(BUILD_WIDTHS)
+    log(f"kernel build {time.perf_counter() - t0:.1f} s, widths {list(BUILD_WIDTHS)} "
+        f"(cached {[_cuda.BUILD[n]['cached'] for n in BUILD_WIDTHS]})")
+    for n in BUILD_WIDTHS:
+        for line in ptxas_summary(_cuda.BUILD[n]["ptxas"]):
+            log(f"[ptxas] {line}")
+    for line in sass_imads(_cuda.BUILD[8]["path"]):
+        log(f"[sass] {line}")
+    return info
+
+
+def sass_imads(lib_path: str) -> list[str]:
+    """The IMAD instructions (every variant) of each kernel in a library's
+    SASS (cuobjdump).  mont_mul_kernel's count is one Montgomery product
+    plus its addressing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return [f"cuobjdump failed: {type(e).__name__}"]
+    out = []
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        imads = len(re.findall(r"\bIMAD[.A-Z0-9]*\s", chunk))
+        out.append(f"{name}: {imads} IMAD")
+    return out
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -176,14 +202,15 @@ def ptxas_summary(report: str) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
-# phase 1: kernels against their plain versions at the 2^20 shapes
+# phase 1: kernels against their plain versions at the paths' shapes
 # ---------------------------------------------------------------------------
 
 
 def _time_ms(fn, runs: int = 7) -> float:
+    """Median of ``runs`` single calls, CUDA events around each."""
     import torch
 
-    fn()  # warm-up (and the build, for the first kernel)
+    fn()  # warm-up
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
@@ -197,99 +224,80 @@ def _time_ms(fn, runs: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def _random_residues(rng, ctx, shape, device):
-    """Uniform-ish residues < q: random words with the top word below q's."""
-    import numpy as np
+def _flat(x):
+    import torch
 
-    from zinc_tpu_torch.fields import montgomery as fm
-
-    words = rng.integers(0, 1 << 32, size=shape + (ctx.n32,), dtype=np.uint64).astype(np.uint32)
-    words[..., -1] = rng.integers(0, int(ctx.q[-1]), size=shape, dtype=np.uint64).astype(np.uint32)
-    return fm.to_tensor(words, device)
+    return [x] if isinstance(x, torch.Tensor) else list(x)
 
 
-def phase1(cfg) -> dict:
+def phase1(cfg8, cfg6, info: dict) -> dict:
+    """Every case of bench_kernels at 2^20 (256 bits) and at 2^16 (192 bits)
+    against its plain version; returns the kernels-line numbers of each
+    kernel (its first 256-bit case; max_abs_err over all its cases)."""
+    import torch
+
+    from zinc_tpu_torch.benches import bench_kernels as bk
+    from zinc_tpu_torch.fields.montgomery import device_field
+
+    results = {}
+    for cfg, log_n in ((cfg8, 20), (cfg6, 16)):
+        ctx = device_field(cfg)
+        for c in bk.cases(ctx, "cuda", log_n):
+            got, want = _flat(c["kernel"]()), _flat(c["plain"]())
+            torch.cuda.synchronize()
+            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+                      for g, w in zip(got, want))
+            exact = err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))
+            ms, single_ms = bk.device_ms(c["kernel"]), _time_ms(c["kernel"])
+            plain_ms = _time_ms(c["plain"], 3)
+            bound, by = bk.bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"])
+            log(f"[kernel] {c['name']} ({c['shape']}, {ctx.n32} words): shapes "
+                f"{[tuple(g.shape) for g in got]} max_abs_err {err} device-only {ms:.4f} ms "
+                f"single {single_ms:.4f} ms plain {plain_ms:.4f} ms bound {bound:.4f} ms ({by}; "
+                f"{c['full']} + {c['lazy']} unreduced products, {c['bytes']} bytes) "
+                f"share {bound / ms:.3f}")
+            if not exact:
+                raise AssertionError(f"{c['name']}: kernel disagrees with its plain version")
+            row = results.setdefault(c["name"], {
+                "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": None, "single_ms": single_ms,
+            })
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        compare_generic(ctx, log_n)
+    return results
+
+
+def compare_generic(ctx, log_n: int) -> None:
+    """round_eval_generic at K3's shape (2 x 2^log_n, terms (0,1), 3 points)
+    and at K4's (the three tables and E as a fourth table with E[p] at 2p
+    and 2p+1, terms (0,1,3) and (2,3), 4 points): equal sums mod q, and the
+    device-only times of both kernels."""
     import numpy as np
     import torch
 
-    from zinc_tpu_torch.fields.montgomery import device_field
-    from zinc_tpu_torch.ops import field_kernels as fk
+    from zinc_tpu_torch.benches import bench_kernels as bk
     from zinc_tpu_torch.sumcheck import kernels as sk
-    from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
 
-    dev = "cuda"
-    ctx = device_field(cfg)
-    rng = np.random.default_rng(20)
-    n = 1 << 20
-    a = _random_residues(rng, ctx, (n,), dev)
-    b = _random_residues(rng, ctx, (n,), dev)
-    sc1 = _random_residues(rng, ctx, (3, n), dev)  # Mz tables of sumcheck 1 (Gruen)
-    sc2 = _random_residues(rng, ctx, (2, n), dev)  # (γ-table, z) of sumcheck 2
-    e_lvl = _random_residues(rng, ctx, (n // 2,), dev)  # suffix-eq level of round 1
-    r = _random_residues(rng, ctx, (1,), "cpu")[0].numpy().view(np.uint32)
-    gruen_terms, classic_terms = [(0, 1), (2,)], [(0, 1)]
-    cases = [
-        # (kernel, shape label, kernel call, plain call); the first case of a
-        # kernel gives its times in the kernels line
-        ("mont_mul", "2^20", lambda: fk.mont_mul(ctx, a, b), lambda: fk.mont_mul_plain(ctx, a, b)),
-        ("fold", "3 x 2^20", lambda: sk.fold(ctx, sc1, r), lambda: sk.fold_plain(ctx, sc1, r)),
-        ("round_eval", "2 x 2^20, 1 term, 3 points",
-         lambda: sk.round_eval(ctx, sc2, classic_terms, 3),
-         lambda: sk.round_eval_plain(ctx, sc2, classic_terms, 3)),
-        ("round_eval_gruen", "3 x 2^20 + E, 2 terms, 4 points",
-         lambda: sk.round_eval_gruen(ctx, sc1, e_lvl, gruen_terms, 4),
-         lambda: sk.round_eval_gruen_plain(ctx, sc1, e_lvl, gruen_terms, 4)),
+    rng = np.random.default_rng(21)
+    n = 1 << log_n
+    sc2 = bk.random_residues(rng, ctx, (2, n), "cuda")
+    sc1 = bk.random_residues(rng, ctx, (3, n), "cuda")
+    e_lvl = bk.random_residues(rng, ctx, (n // 2,), "cuda")
+    sc1e = torch.cat([sc1, e_lvl.repeat_interleave(2, dim=0)[None]]).contiguous()
+    pairs = [
+        ("K3", f"2 x 2^{log_n}, 1 term of 2, 3 points",
+         lambda: sk.round_eval(ctx, sc2, [(0, 1)], 3),
+         lambda: sk.round_eval_generic(ctx, sc2, [(0, 1)], 3)),
+        ("K4", f"3 x 2^{log_n} + E, terms of 2 and 1, 4 points",
+         lambda: sk.round_eval_gruen(ctx, sc1, e_lvl, [(0, 1), (2,)], 4),
+         lambda: sk.round_eval_generic(ctx, sc1e, [(0, 1, 3), (2, 3)], 4)),
     ]
-    # the generic tier at the shapes of its two paths: path B (7 factors,
-    # degree 7) and path A's sumcheck 1 (5 Mz tables + eq, the degree-5
-    # comb), each in round 0 and in its first fused round, and the last
-    # device fold of path B (a table of 2·HOST_TAIL entries)
-    sc7 = _random_residues(rng, ctx, (7, n), dev)
-    sc6 = _random_residues(rng, ctx, (6, n), dev)
-    tail7 = sc7[:, : 2 * HOST_TAIL].contiguous()
-    t7, t_a = [tuple(range(7))], [(0, 1, 2, 3, 5), (4, 5)]
-    cases += [
-        ("round_eval_generic", "path B: 7 x 2^20, 1 term of 7, 8 points",
-         lambda: sk.round_eval_generic(ctx, sc7, t7, 8), lambda: sk.round_eval_plain(ctx, sc7, t7, 8)),
-        ("round_eval_generic", "path A: 6 x 2^20, terms of 5 and 2, 6 points",
-         lambda: sk.round_eval_generic(ctx, sc6, t_a, 6), lambda: sk.round_eval_plain(ctx, sc6, t_a, 6)),
-        ("fold_round_eval", "path A: 6 x 2^20 -> 2^19, terms of 5 and 2, 6 points",
-         lambda: sk.fold_round_eval(ctx, sc6, r, t_a, 6),
-         lambda: sk.fold_round_eval_plain(ctx, sc6, r, t_a, 6)),
-        ("fold_round_eval", "path B: 7 x 2^20 -> 2^19, 1 term of 7, 8 points",
-         lambda: sk.fold_round_eval(ctx, sc7, r, t7, 8),
-         lambda: sk.fold_round_eval_plain(ctx, sc7, r, t7, 8)),
-        ("fold", f"path B's last: 7 x {2 * HOST_TAIL} -> {HOST_TAIL}",
-         lambda: sk.fold(ctx, tail7, r), lambda: sk.fold_plain(ctx, tail7, r)),
-    ]
-
-    def flat(x):
-        return [x] if isinstance(x, torch.Tensor) else list(x)
-
-    results = {}
-    for name, shape, kern, plain in cases:
-        got, want = flat(kern()), flat(plain())
-        torch.cuda.synchronize()
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
-                  for g, w in zip(got, want))
-        ms, plain_ms = _time_ms(kern), _time_ms(plain, 3)
-        log(f"[kernel] {name} ({shape}): shapes {[tuple(g.shape) for g in got]} max_abs_err {err} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{name}: kernel disagrees with its plain version")
-        row = results.setdefault(name, {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms})
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-
-    # no path's shape: the generic kernel at K3's (sumcheck 2's), to see
-    # whether one kernel could serve the classic rounds too
-    if not torch.equal(sk.round_eval_generic(ctx, sc2, classic_terms, 3),
-                       sk.round_eval(ctx, sc2, classic_terms, 3)):
-        raise AssertionError("round_eval_generic disagrees with round_eval at K3's shape")
-    k3_ms = _time_ms(lambda: sk.round_eval(ctx, sc2, classic_terms, 3))
-    gen_ms = _time_ms(lambda: sk.round_eval_generic(ctx, sc2, classic_terms, 3))
-    log(f"[compare] 2 x 2^20, 1 term of 2, 3 points: round_eval {k3_ms:.4f} ms, "
-        f"round_eval_generic {gen_ms:.4f} ms (equal sums)")
-    return results
+    for what, shape, own, generic in pairs:
+        a, b = sk.sums_to_ints(ctx, own()), sk.sums_to_ints(ctx, generic())
+        if not (a == b).all():
+            raise AssertionError(f"round_eval_generic disagrees with {what} at its shape")
+        log(f"[compare] {what}'s shape, {shape}, {ctx.n32} words: {what} {bk.device_ms(own):.4f} ms, "
+            f"round_eval_generic {bk.device_ms(generic):.4f} ms device-only (equal sums)")
 
 
 # ---------------------------------------------------------------------------
@@ -297,12 +305,12 @@ def phase1(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def prove_verify(ccs, statement, wit, device: str):
+def prove_verify(ccs, statement, wit, device: str, n64: int = 4):
     import zinc_tpu_torch as zt
 
     ztypes = zt.ZipTypes(1)
     t = zt.KeccakTranscript()
-    cfg = zt.draw_random_field(statement.public_input, t, ztypes.n_words, 4)
+    cfg = zt.draw_random_field(statement.public_input, t, ztypes.n_words, n64)
     t0 = time.perf_counter()
     proof = zt.ZincProver(ztypes, device=device).prove(statement, wit, t, ccs, cfg)
     prove_s = time.perf_counter() - t0
@@ -351,6 +359,18 @@ def phase2(device: str) -> None:
 
     expect_reject(bad_vs, "V_s[0] + 1")
     expect_reject(bad_byte, "PCS byte flip")
+
+    # a 192-bit field: 6-word kernels (8-byte vector loads)
+    n, seed = N64_3_CASE
+    ccs, statement, wit, _, _ = setup(n, seed, 3)
+    _cuda.reset_launches()
+    proof, cfg, _, _, _ = prove_verify(ccs, statement, wit, device, n64=3)
+    launches = dict(_cuda.LAUNCHES)
+    digest = hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest()
+    log(f"[2^8, n64 = 3] proof sha256 {digest}, verifier accepted; launches {launches}")
+    if digest != N64_3_SHA256:
+        raise AssertionError(f"the n64 = 3 proof hashes to {digest}, not {N64_3_SHA256}")
+    check_launches(launches, R1CS_KERNELS, GENERIC_KERNELS, "the 2^8 dummy R1CS at n64 = 3")
 
 
 def check_launches(launches: dict, must: tuple, must_not: tuple, what: str) -> None:
@@ -473,9 +493,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
 
-    phase0([1 << 10, 1 << 20])
-    _, _, _, _, cfg = setup(1 << 10, 1234)  # any field of the main path's width
-    kernels = phase1(cfg)
+    info = phase0()
+    _, _, _, _, cfg8 = setup(1 << 10, 1234)  # any field of the main path's width
+    _, _, _, _, cfg6 = setup(*N64_3_CASE, 3)
+    kernels = phase1(cfg8, cfg6, info)
     phase2("cuda")
     runs = [phase3(20)]
     profile_prove(20)

@@ -1,7 +1,10 @@
 """The port's whole prove + verify against the JAX package: the pinned 2^10
-golden proof, a live second seed against ``zinc_tpu``'s host prover, the
-tamper probes of tests/test_golden.py, and a run with jax unimportable."""
+golden proof, a live second seed against ``zinc_tpu``'s host prover (and a
+192-bit field), the tamper probes of tests/test_golden.py, a run with jax
+unimportable, and the entry points' default device."""
 
+import hashlib
+import inspect
 import os
 import random
 import subprocess
@@ -10,9 +13,12 @@ import textwrap
 from pathlib import Path
 
 import pytest
+import torch
 
+import chip_smoke
 import zinc_tpu_torch as zt
 from tests.golden.gen import N, SEED
+from zinc_tpu_torch.zip import pcs
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "proof_2p10.bin"
@@ -37,7 +43,7 @@ def test_port_prove_reproduces_golden_2p10():
     assert _prove(N, SEED) == GOLDEN.read_bytes()
 
 
-def test_port_matches_jax_host_prover_2p8():
+def _jax_host_proof(n, seed, n64=4) -> bytes:
     from zinc_tpu.ccs import dummy_ccs_of_size
     from zinc_tpu.prime import draw_random_field
     from zinc_tpu.serialize import serialize_proof
@@ -45,11 +51,51 @@ def test_port_matches_jax_host_prover_2p8():
     from zinc_tpu.zinc import ZincProver
     from zinc_tpu.zip.code import ZipTypes
 
-    _, ccs, statement, wit = dummy_ccs_of_size(1 << 8, random.Random(99), int_bits=62)
+    _, ccs, statement, wit = dummy_ccs_of_size(n, random.Random(seed), int_bits=62)
     t = KeccakTranscript()
-    cfg = draw_random_field(statement.public_input, t, 1, 4)
-    want = serialize_proof(ZincProver(ZipTypes(1), backend="host").prove(statement, wit, t, ccs, cfg), cfg)
-    assert _prove(1 << 8, 99) == want
+    cfg = draw_random_field(statement.public_input, t, 1, n64)
+    return serialize_proof(ZincProver(ZipTypes(1), backend="host").prove(statement, wit, t, ccs, cfg), cfg)
+
+
+def test_port_matches_jax_host_prover_2p8():
+    assert _prove(1 << 8, 99) == _jax_host_proof(1 << 8, 99)
+
+
+def test_port_matches_jax_host_prover_192bit_2p8():
+    """A field of n64 = 3 (6 words, a width whose elements are 8-byte
+    vectors on the card): at 2^8 both sumchecks run device rounds, Gruen's
+    included, and the proof bytes equal the JAX host prover's; they hash to
+    the digest chip_smoke.py holds the card's proof to.  The verifier
+    accepts and rejects the V_s[0] + 1 tamper."""
+    n, seed = chip_smoke.N64_3_CASE
+    _, ccs, statement, wit = zt.dummy_ccs_of_size(n, random.Random(seed), int_bits=62)
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(statement.public_input, t, 1, 3)
+    assert cfg.q.bit_length() == 192
+    proof = zt.ZincProver(zt.ZipTypes(1), device="cpu").prove(statement, wit, t, ccs, cfg)
+    blob = zt.serialize_proof(proof, cfg)
+    assert blob == _jax_host_proof(n, seed, n64=3)
+    assert hashlib.sha256(blob).hexdigest() == chip_smoke.N64_3_SHA256
+    verifier = zt.ZincVerifier(zt.ZipTypes(1), device="cpu")
+    verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
+    proof.spartan_proof.V_s[0] = proof.spartan_proof.V_s[0] + cfg.one()
+    with pytest.raises(zt.ZincError):
+        verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
+
+
+def test_entry_points_default_to_the_card():
+    """With no ``device`` argument the prover, the verifier and the PCS
+    verifier run on CUDA; without a card they raise rather than fall back
+    to the CPU."""
+    for fn in (zt.ZincProver.__init__, zt.ZincVerifier.__init__, pcs.verify_poly):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for cls in (zt.ZincProver, zt.ZincVerifier):
+        if torch.cuda.is_available():
+            assert cls(zt.ZipTypes(1)).device == torch.device("cuda")
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cls(zt.ZipTypes(1))
+        assert cls(zt.ZipTypes(1), device="cpu").device == torch.device("cpu")
 
 
 def test_port_verifier_accepts_golden_and_rejects_tampering():
@@ -76,7 +122,7 @@ def test_port_runs_without_jax():
     """The card's situation: jax cannot be imported at all."""
     script = textwrap.dedent(
         f"""
-        import random, sys
+        import os, random, sys
         sys.modules["jax"] = None
         sys.path.insert(0, {str(ROOT)!r})
         import zinc_tpu_torch as zt
@@ -87,7 +133,10 @@ def test_port_runs_without_jax():
         proof = zt.ZincProver(zt.ZipTypes(1), device="cpu").prove(st, wit, t, ccs, cfg)
         zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(st, proof, zt.KeccakTranscript(), ccs, cfg)
         assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
-        assert "zinc_tpu" not in sys.modules and _cuda._lib is None
+        assert "zinc_tpu" not in sys.modules and _cuda._libs == {{}}
+        ref = os.path.join({str(ROOT)!r}, "zinc_tpu") + os.sep
+        loaded = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values()) if m]
+        assert not [f for f in loaded if os.path.abspath(f).startswith(ref)], "reference module loaded"
         print("ok")
         """
     )

@@ -11,7 +11,7 @@ import torch
 from zinc_tpu.fields import montgomery as jm
 from zinc_tpu.fields.config import FieldConfig as JFieldConfig
 from zinc_tpu.fields.limbs import ints_to_limbs, limbs_to_ints
-from zinc_tpu_torch._host.fields.config import FieldConfig
+from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.fields import montgomery as fm
 
 # (q, n64): the small-q cases of tests/test_device_field.py, one field with

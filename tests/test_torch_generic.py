@@ -23,9 +23,9 @@ from zinc_tpu.poly.device import fps_to_limbs as j_fps_to_limbs
 from zinc_tpu.sumcheck.device import DeviceSumcheckExecutor as JExecutor
 from zinc_tpu.sumcheck.device import _round_kernel
 from zinc_tpu.sumcheck.device import prove_as_subprotocol_device as j_prove_with_executor
-from zinc_tpu_torch._host.fields.config import FieldConfig
-from zinc_tpu_torch._host.sumcheck.verifier import verify_as_subprotocol
-from zinc_tpu_torch._host.transcript import KeccakTranscript
+from zinc_tpu_torch.fields.config import FieldConfig
+from zinc_tpu_torch.sumcheck.verifier import verify_as_subprotocol
+from zinc_tpu_torch.transcript import KeccakTranscript
 from zinc_tpu_torch.fields import montgomery as fm
 from zinc_tpu_torch.fields.montgomery import device_field
 from zinc_tpu_torch.sumcheck import device as sdev

@@ -1,4 +1,5 @@
-"""The wrappers of the port's CUDA kernels (K1-K4 and the generic tier).
+"""The wrappers of the port's CUDA kernels (K1-K4 and the generic tier), and
+the port's native host runtime.
 
 On the CPU a wrapper takes the plain version, and only because its tensor
 lies on the CPU; bad dtypes, shapes and combinations raise.  The cases
@@ -12,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from zinc_tpu_torch._host.fields.config import FieldConfig
+from zinc_tpu_torch import native
 from zinc_tpu_torch.fields import montgomery as fm
-from zinc_tpu_torch.native_threads import covers, safe_native_threads
+from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.ops import _cuda
 from zinc_tpu_torch.ops import field_kernels as fk
 from zinc_tpu_torch.sumcheck import kernels as sk
@@ -38,6 +39,7 @@ def ctx():
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _cuda.build(_cuda.KERNEL_WORDS)  # every width at once (no-op once built)
     return "cuda"
 
 
@@ -54,7 +56,7 @@ def test_cpu_tensors_take_the_plain_versions(ctx):
     assert torch.equal(sk.round_eval_gruen(ctx, tabs, e, [(0, 1), (2,)], 4),
                        sk.round_eval_gruen_plain(ctx, tabs, e, [(0, 1), (2,)], 4))
     assert all(v == 0 for v in _cuda.LAUNCHES.values())
-    assert _cuda._lib is None  # nothing was built for CPU tensors
+    assert _cuda._libs == {}  # nothing was built for CPU tensors
 
 
 def test_wrappers_reject_bad_inputs(ctx):
@@ -85,12 +87,13 @@ def test_generic_wrappers_take_the_plain_versions_on_cpu(ctx):
     r = fm.to_numpy(_residues(ctx, (1,), 21))[0]
     terms = [(0, 1, 2, 3, 0, 1, 2), (3,)]
     _cuda.reset_launches()
-    assert torch.equal(sk.round_eval_generic(ctx, tabs, terms, 9), sk.round_eval_plain(ctx, tabs, terms, 9))
+    assert torch.equal(sk.round_eval_generic(ctx, tabs, terms, 9),
+                       sk.round_eval_generic_plain(ctx, tabs, terms, 9))
     folded, sums = sk.fold_round_eval(ctx, tabs, r, terms, 8)
     assert torch.equal(folded, sk.fold_plain(ctx, tabs, r))
-    assert torch.equal(sums, sk.round_eval_plain(ctx, folded, terms, 8))
+    assert torch.equal(sums, sk.round_eval_generic_plain(ctx, folded, terms, 8))
     assert all(v == 0 for v in _cuda.LAUNCHES.values())
-    assert _cuda._lib is None
+    assert _cuda._libs == {}
 
 
 def test_generic_wrappers_reject_bad_inputs(ctx):
@@ -135,29 +138,71 @@ def test_support_predicates_follow_the_reference():
     assert not sk.gruen_supported([(3, 0)], 3, 8)
 
 
+def test_round_eval_scope_counts_the_launchs_slots():
+    """K3/K4's scope and block come from one rule: a term of k factors takes
+    k + 1 running sums of a block's shared memory, whatever the points."""
+    assert sk.eval_slots([(0, 1)] * 32) == 96
+    assert sk.eval_block(96, 8) == 32 and sk.eval_block(3, 8) == 256
+    assert sk.eval_block(160, 8) == 0
+    assert sk.classic_supported([(0, 1)] * 32, 8, 5)  # 96 slots, not 32 · 5
+    assert not sk.classic_supported([(0, 1, 2, 3)] * 32, 8, 5)  # 160 slots
+    assert sk.gruen_supported([(0, 3)] * 32, 3, 8, 5)
+    assert not sk.classic_supported([(0, 1)] * 32, 16, 5)
+
+
 @pytest.mark.parametrize(
-    "n,max_threads,bad",
-    [(513, 2, [2]), (16_000, 27, [27]), (32_000, 256, [37, 54, 74, 95, 105, 111]),
-     (1_024_000, 256, [39, 98, 117, 152, 162, 231, 237, 249])],
+    "terms,n_pts,gruen,per_pair",
+    [([(0, 1)], 3, False, (0, 3)),  # K3 at the R1CS shape
+     ([(0, 1), (2,)], 4, True, (2, 5)),  # K4 at the R1CS shape
+     ([(0, 1, 2, 3, 5), (4, 5)], 6, False, (18, 9)),  # path A's combination
+     ([tuple(range(7))], 8, False, (40, 8)),  # path B's
+     ([(0,), (1, 2)], 4, False, (0, 3))],  # a lone factor needs no product
 )
-def test_native_thread_count_covers_every_batch(n, max_threads, bad):
-    """The runtime's 16-aligned chunks, capped at n/256 threads
-    (native/zinc_native.cpp:38-56), lose the tail at these counts."""
-    assert [nt for nt in range(1, max_threads + 1) if not covers(n, nt)] == bad
-    nt = safe_native_threads([n], max_threads)
-    assert nt <= max_threads and covers(n, nt)
-    assert all(not covers(n, k) for k in range(nt + 1, max_threads + 1))
-    # every 16-aligned chunk is reached at the chosen count
-    eff = min(nt, n // 256) if nt > 1 else 1
-    if eff > 1:
-        chunk = ((n // eff + 15) // 16) * 16
-        assert chunk % 16 == 0 and chunk * eff >= n
+def test_bounds_count_what_the_round_needs(terms, n_pts, gruen, per_pair):
+    """Every round kernel's bound counts the same products: a term of k
+    factors at min(k + 1, n_pts) points, k − 2 Montgomery products and one
+    unreduced product at each."""
+    from zinc_tpu_torch.benches import bench_kernels as bk
+
+    assert bk.round_products(1, terms, n_pts, gruen) == per_pair
+    assert bk.round_products(1 << 19, terms, n_pts, gruen) == tuple(x << 19 for x in per_pair)
 
 
-def test_native_thread_count_for_the_main_path():
-    assert safe_native_threads([32_000, 1_024_000], 256) == 256
-    assert safe_native_threads([32_000, 1_024_000], 111) == 110
-    assert safe_native_threads([513, 32_000], 8) == 1
+@pytest.mark.parametrize(
+    "n,threads",
+    [(513, 2), (16_000, 27), (32_000, 37), (32_000, 256), (1_024_000, 39), (1_024_000, 249),
+     (1_024_000, 256)],
+)
+def test_native_batches_cover_their_tails(monkeypatch, n, threads):
+    """The port's native runtime splits a batch over ``threads`` threads in
+    16-aligned chunks (``csrc/zinc_native.cpp:zn_parallel_16aligned``).  With
+    floor-division chunks the JAX package's copy left the tail of these
+    batches to no thread; here every digest, the tail's included, equals the
+    single-thread result."""
+    rng = np.random.default_rng(n + threads)
+    depth = 2
+    leaves = rng.integers(0, 256, size=32 * n, dtype=np.uint8).tobytes()
+    siblings = rng.integers(0, 256, size=32 * n * depth, dtype=np.uint8).tobytes()
+    indices = rng.integers(0, 1 << depth, size=n).tolist()
+
+    def run(nt):
+        monkeypatch.setenv("ZINC_TPU_NATIVE_THREADS", str(nt))
+        return (native.blake3_batch(leaves, n, 32),
+                native.merkle_fold_batch(leaves, siblings, indices, depth))
+
+    got, want = run(threads), run(1)
+    assert got[0] is not None and got == want
+    tail = [h[-32 * 16:] for h in got]  # the last 16-lane block
+    assert all(t != bytes(len(t)) for t in tail)
+
+
+def test_native_runtime_is_the_ports_own():
+    """The port builds its own copy of the runtime, from its own source."""
+    from pathlib import Path
+
+    pkg = Path(native.__file__).parent
+    assert Path(native._SRC) == pkg / "csrc" / "zinc_native.cpp"
+    assert Path(native._lib_path()).parent == pkg / "_build"
 
 
 # ---------------------------------------------------------------------------
@@ -165,9 +210,14 @@ def test_native_thread_count_for_the_main_path():
 # ---------------------------------------------------------------------------
 
 
+# one field per width the kernels take (n64 = 1..8), and a second 256-bit one
+FIELDS = [((1 << 63) + 29, 1), ((1 << 127) - 1, 2), ((1 << 191) + 5, 3), ((1 << 255) + 95, 4),
+          ((1 << 256) - 189, 4), ((1 << 319) + 9, 5), ((1 << 383) + 369, 6),
+          ((1 << 447) + 99, 7), ((1 << 511) + 187, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n64", [((1 << 255) + 95, 4), ((1 << 256) - 189, 4),
-                                   ((1 << 127) - 1, 2), ((1 << 383) + 369, 6)])
+@pytest.mark.parametrize("q,n64", FIELDS)
 def test_kernels_match_plain_on_cuda(cuda_device, q, n64):
     c = fm.device_field(FieldConfig(q, n64))
     a, b = _residues(c, (4096,), 7, cuda_device), _residues(c, (4096,), 8, cuda_device)
@@ -193,14 +243,57 @@ def test_cuda_tensors_launch_the_kernels(cuda_device, ctx):
     sk.fold(ctx, tabs, fm.int_to_words(3, 8))
     sk.round_eval(ctx, tabs, [(0, 1)], 3)
     sk.round_eval_gruen(ctx, tabs, a[:32].contiguous(), [(0,), (1,)], 3)
-    assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 2,
+    assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 1,
                               "round_eval_generic": 0, "fold_round_eval": 0}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n64", [((1 << 255) + 95, 4), ((1 << 256) - 189, 4),
-                                   ((1 << 127) - 1, 2), ((1 << 383) + 369, 6),
-                                   ((1 << 511) + 187, 8)])
+@pytest.mark.parametrize("n64", [3, 4])
+@pytest.mark.parametrize("n_pairs", [1, 197, 4096, 135_169])
+def test_round_evals_launch_once_per_round_on_cuda(cuda_device, n64, n_pairs):
+    """K3 and K4 at 6 and 8 words, at the R1CS combinations and at wider
+    ones: one launch for the whole combination and sums exactly equal to the
+    plain versions'.  The pair counts leave lanes and blocks idle and give a
+    thread several grid strides."""
+    c = fm.device_field(FieldConfig({3: (1 << 191) + 5, 4: (1 << 255) + 95}[n64], n64))
+    tabs = _residues(c, (4, 2 * n_pairs), 30, cuda_device)
+    e = _residues(c, (n_pairs,), 31, cuda_device)
+    for terms, pts in [([(0, 1)], 3), ([(0, 3), (1, 2, 3), (0, 1, 2, 3), (3, 3)], 5)]:
+        _cuda.reset_launches()
+        got = sk.round_eval(c, tabs, terms, pts)
+        assert _cuda.LAUNCHES["round_eval"] == 1
+        assert torch.equal(got, sk.round_eval_plain(c, tabs, terms, pts))
+    for terms, pts in [([(0, 1), (2,)], 4), ([(0, 1, 2), (3,), (1, 1)], 5)]:
+        _cuda.reset_launches()
+        got = sk.round_eval_gruen(c, tabs, e, terms, pts)
+        assert _cuda.LAUNCHES["round_eval_gruen"] == 1
+        assert torch.equal(got, sk.round_eval_gruen_plain(c, tabs, e, terms, pts))
+
+
+@pytest.mark.cuda
+def test_round_evals_on_two_streams_on_cuda(cuda_device, ctx):
+    """K3 and K4 launches in flight on two streams at once each count their
+    own finished blocks, so every launch sums all of its blocks' rows."""
+    tabs = _residues(ctx, (3, 1 << 16), 40, cuda_device)
+    e = _residues(ctx, (1 << 15,), 41, cuda_device)
+    want3 = sk.round_eval_plain(ctx, tabs, [(0, 1)], 3)
+    want4 = sk.round_eval_gruen_plain(ctx, tabs, e, [(0, 1), (2,)], 4)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    got3, got4 = [], []
+    for _ in range(16):
+        with torch.cuda.stream(s1):
+            got3.append(sk.round_eval(ctx, tabs, [(0, 1)], 3))
+        with torch.cuda.stream(s2):
+            got4.append(sk.round_eval_gruen(ctx, tabs, e, [(0, 1), (2,)], 4))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want3) for g in got3)
+    assert all(torch.equal(g, want4) for g in got4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n64", FIELDS)
 @pytest.mark.parametrize("n_pairs", [1, 197, 4096, 135_169])
 def test_generic_kernels_match_plain_on_cuda(cuda_device, q, n64, n_pairs):
     """Every factor count 1-8, 9 points, repeated factors, several terms, and
@@ -214,7 +307,7 @@ def test_generic_kernels_match_plain_on_cuda(cuda_device, q, n64, n_pairs):
                (2, 3, 4, 5, 6, 0, 1), tuple(range(7)) + (3,)], 9)]
     for terms, pts in combs:
         assert torch.equal(sk.round_eval_generic(c, tabs, terms, pts),
-                           sk.round_eval_plain(c, tabs, terms, pts))
+                           sk.round_eval_generic_plain(c, tabs, terms, pts))
         folded, sums = sk.fold_round_eval(c, tabs, r, terms, pts)
         want_f, want_s = sk.fold_round_eval_plain(c, tabs, r, terms, pts)
         assert torch.equal(folded, want_f) and torch.equal(sums, want_s)

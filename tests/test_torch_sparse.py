@@ -15,9 +15,9 @@ from zinc_tpu.ops.field_map import ints_to_field_device as j_ints
 from zinc_tpu.poly.device import build_eq_table_device as j_eq
 from zinc_tpu.poly.device import fps_to_limbs as j_fps_to_limbs
 from zinc_tpu.sparse import SparseMatrix as JSparseMatrix
-from zinc_tpu_torch._host.ccs import dummy_ccs_of_size
-from zinc_tpu_torch._host.fields.config import FieldConfig
-from zinc_tpu_torch._host.sparse import SparseMatrix
+from zinc_tpu_torch.ccs import dummy_ccs_of_size
+from zinc_tpu_torch.fields.config import FieldConfig
+from zinc_tpu_torch.sparse import SparseMatrix
 from zinc_tpu_torch.fields import montgomery as fm
 from zinc_tpu_torch.ops import sparse as ps
 from zinc_tpu_torch.ops.field_map import i64_to_field_device, ints_to_field_device

@@ -30,9 +30,9 @@ from zinc_tpu.sumcheck.mxu_exec import (
 )
 from zinc_tpu.sumcheck.prover import prove_as_subprotocol as j_prove
 from zinc_tpu.transcript import KeccakTranscript as JKeccakTranscript
-from zinc_tpu_torch._host.fields.config import FieldConfig
-from zinc_tpu_torch._host.sumcheck.prover import _fold, _round_evals
-from zinc_tpu_torch._host.transcript import KeccakTranscript
+from zinc_tpu_torch.fields.config import FieldConfig
+from zinc_tpu_torch.sumcheck.prover import _fold, _round_evals
+from zinc_tpu_torch.transcript import KeccakTranscript
 from zinc_tpu_torch.fields import montgomery as fm
 from zinc_tpu_torch.fields.montgomery import device_field
 from zinc_tpu_torch.poly.device import eq_levels, fps_to_tensor
@@ -124,6 +124,42 @@ def test_gruen_round_eval_matches_twin():
     # the suffix levels equal the eq tables of the β suffixes
     eq1 = j_build_eq_x_r(jbeta[1:], JCFG).evaluations
     assert fm.words_to_ints(fm.to_numpy(levels[1])) == [x.m for x in eq1]
+
+
+def test_round_evals_192bit_match_twins():
+    """K3 and K4's plain versions over a 192-bit field (n64 = 3, 6 words),
+    against the XLA twins as above: every term of 1-3 factors before eq, and
+    points that the kernels extend by finite differences."""
+    q = (1 << 191) + 5
+    cfg, jcfg = FieldConfig(q, 3), JFieldConfig(q, 3)
+    ctx, jctx = device_field(cfg), j_device_field(jcfg)
+    b = 2 * TILE * 2
+    vals = _tables(cfg, b, 4, 10)
+    idx_terms, coeffs, degree = ((0, 1, 2, 3), (1, 2, 3)), (5, -1), 4
+    sums = kernels.round_eval(ctx, _port_tables(cfg, vals), list(idx_terms), degree + 1)
+    got = [x.m for x in round_values(cfg, sums, [cfg.fp(c) for c in coeffs])]
+    terms = term_meta(idx_terms, jcfg.n16)
+    gs = eval_lm_ref(jctx, _jax_lm(jcfg, vals, b), terms, b // (2 * TILE))
+    jcomb = [(jcfg.fp(c), t) for c, t in zip(coeffs, idx_terms)]
+    assert got == [x.m for x in g_to_evals_host(jcfg, [np.asarray(g) for g in gs], jcomb, terms, degree)]
+
+    nv = 11
+    vals = _tables(cfg, 1 << nv, 3, 11)
+    beta = [random.Random(12).randrange(q) for _ in range(nv)]
+    idx_terms = ((0, 1, 2, 3), (2, 3), (0, 1, 3))
+    comb = [(cfg.fp(3), idx_terms[0]), (cfg.one(), idx_terms[1]), (cfg.fp(-2), idx_terms[2])]
+    levels = eq_levels(ctx, fps_to_tensor([cfg.fp_from_mont(x) for x in beta], cfg, "cpu"))
+    sums = kernels.round_eval_gruen(ctx, _port_tables(cfg, vals), levels[1],
+                                    [t[:-1] for t in idx_terms], degree + 1)
+    got = [x.m for x in round_values(cfg, sums, [c for c, _ in comb],
+                                     (cfg.one(), cfg.fp_from_mont(beta[0])))]
+    gterms = gruen_term_meta(idx_terms, 3, jcfg.n16)
+    jbeta = _jfps(jcfg, beta)
+    e_flat = build_eq_suffix_flat(jctx, jnp.asarray(j_fps_to_limbs(jbeta, jcfg)), nv)
+    gs = eval_lm_gruen_ref(jctx, _jax_lm(jcfg, vals, 1 << nv), e_flat, gterms, (1 << nv) // (2 * TILE), 0)
+    jcomb = [(jcfg.fp(3), idx_terms[0]), (jcfg.one(), idx_terms[1]), (jcfg.fp(-2), idx_terms[2])]
+    assert got == [x.m for x in gruen_g_to_evals_host(jcfg, gs, jcomb, gterms, degree, jbeta[0],
+                                                      jcfg.one())]
 
 
 def _run_both(cfg, jcfg, vals, nvars, degree, comb_spec, beta=None):

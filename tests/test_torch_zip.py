@@ -18,10 +18,10 @@ from zinc_tpu.zip.code import DefaultLinearCodeSpec as JSpec
 from zinc_tpu.zip.code import RaaCode as JRaaCode
 from zinc_tpu.zip.code import ZipTypes as JZipTypes
 from zinc_tpu.zip.transcript import PcsTranscript as JPcsTranscript
-from zinc_tpu_torch._host.fields.config import FieldConfig
-from zinc_tpu_torch._host.poly.mle import DenseMleZ
-from zinc_tpu_torch._host.zip.code import DefaultLinearCodeSpec, RaaCode, ZipTypes
-from zinc_tpu_torch._host.zip.transcript import PcsTranscript
+from zinc_tpu_torch.fields.config import FieldConfig
+from zinc_tpu_torch.poly.mle import DenseMleZ
+from zinc_tpu_torch.zip.code import DefaultLinearCodeSpec, RaaCode, ZipTypes
+from zinc_tpu_torch.zip.transcript import PcsTranscript
 from zinc_tpu_torch.fields.integers import combine_rows_signed, i64_to_mag8, ints_to_mag8
 from zinc_tpu_torch.spartan_dev import z_to_device
 from zinc_tpu_torch.zip import pcs

@@ -2,18 +2,21 @@
 
 The port of ``zinc_tpu`` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
 The hot paths run as torch ops and hand-written CUDA kernels for sm_90a
-(``csrc/``); protocol logic and Fiat-Shamir stay on the host, where the
-JAX package's framework-free modules are reused through ``_host``.
+(``csrc/``); protocol logic and Fiat-Shamir stay on the host, in the
+package's own copies of the JAX package's framework-free modules
+(``transcript.py``, ``spartan.py``, ``ccs/``, ``zip/code.py``, …; the port
+imports nothing of ``zinc_tpu``).  The entry points run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.
 
 Importing the package compiles and loads nothing: the CUDA kernels are built
 at their first call on a CUDA tensor.
 """
 
-from ._host.ccs import CCS, Statement, Witness, dummy_ccs_of_size
-from ._host.fields.config import FieldConfig, Fp
-from ._host.prime import draw_random_field
-from ._host.transcript import KeccakTranscript
-from ._host.zip.code import ZipTypes
+from .ccs import CCS, Statement, Witness, dummy_ccs_of_size
+from .fields.config import FieldConfig, Fp
+from .prime import draw_random_field
+from .transcript import KeccakTranscript
+from .zip.code import ZipTypes
 from .serialize import deserialize_proof, serialize_proof
 from .zinc import ZincError, ZincProof, ZincProver, ZincVerifier
 

@@ -1,0 +1,217 @@
+"""Device-only times of the port's kernels at the shapes its paths give them.
+
+    python3 zinc_tpu_torch/benches/bench_kernels.py [--root DIR]
+
+Each case times 20 back-to-back calls of a kernel's wrapper between two
+CUDA events, after one warm-up call, and divides by 20; a
+sleeping kernel holds the stream while the host queues the calls, so the
+number is the device's alone (:func:`device_ms`).  Beside each time stands
+its bound, the least time the card could take for the same work: the larger
+of the bytes the call must move (each input read once, each output written
+once) over 3.35 TB/s, and its integer multiply-add slots over 132 SMs × 64
+slots a clock × the SM clock (``nvidia-smi`` clocks.max.sm).  A Montgomery
+product of N-word residues takes 2N² + N 32×32→64-bit multiply-adds of two
+slots each, 4N² + 2N; a product summed unreduced (a term's last factor:
+the round sums are only needed mod q) takes the N² of the product alone,
+2N².  Every round kernel is held to the same count of products, the least
+its round needs (:func:`round_products`), whatever its own scheme forms.
+
+``--root`` times the kernels of another checkout of the port with the same
+cases (its ``zinc_tpu_torch`` is imported instead of this one's), so that
+two versions can be compared in one call on one card.  The field is
+q = 2^255 + 95 (n64 = 4), the tables random residues from a seed.  Prints
+the card, then one JSON line per case.  ``chip_smoke.py`` takes its cases,
+its timer and its bounds from here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+SMS = 132
+IMAD_SLOTS_PER_CLOCK = 64  # per SM, compute capability 9.0
+
+
+def card() -> dict:
+    """Name, power limit and maximum SM clock of card 0 (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name, power, clock = (x.strip() for x in out.split(","))
+    return {"name": name, "power_limit_w": float(power), "max_sm_mhz": float(clock)}
+
+
+def bound_ms(n32: int, n_bytes: int, full: int, lazy: int, max_sm_mhz: float) -> tuple[float, str]:
+    """(bound in ms, "bytes" or "operations") of a call that moves n_bytes and
+    forms ``full`` Montgomery products and ``lazy`` unreduced ones."""
+    mem = n_bytes / HBM_BYTES_PER_S * 1e3
+    slots = full * (4 * n32 * n32 + 2 * n32) + lazy * 2 * n32 * n32
+    ops = slots / (SMS * IMAD_SLOTS_PER_CLOCK * max_sm_mhz * 1e6) * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
+HOLD_CYCLES = 100_000_000  # ≈ 50 ms of the card's clock
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """CUDA events around ``calls`` back-to-back calls, over ``calls``.  The
+    stream is first held by a sleeping kernel (``HOLD_CYCLES``), so that the
+    host has queued every call before the first one runs: the events then
+    bracket device work only, not the wrappers' host side.  Raises if the
+    host took longer to queue the calls than the hold lasted."""
+    import time
+
+    import torch
+
+    fn()  # warm-up (and the build, for a width's first kernel)
+    torch.cuda.synchronize()
+    hold, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    hold.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if host_ms >= hold.elapsed_time(start):
+        raise RuntimeError(f"queueing {calls} calls took {host_ms:.1f} ms, longer than the hold")
+    return start.elapsed_time(end) / calls
+
+
+def random_residues(rng, ctx, shape, device):
+    """Uniform-ish residues < q: random words with the top word below q's."""
+    import numpy as np
+
+    from zinc_tpu_torch.fields import montgomery as fm
+
+    words = rng.integers(0, 1 << 32, size=shape + (ctx.n32,), dtype=np.uint64).astype(np.uint32)
+    words[..., -1] = rng.integers(0, int(ctx.q[-1]), size=shape, dtype=np.uint64).astype(np.uint32)
+    return fm.to_tensor(words, device)
+
+
+def round_products(pairs: int, terms, n_pts: int, gruen: bool = False) -> tuple[int, int]:
+    """(Montgomery, unreduced) products that a round evaluation needs, one
+    rule for every round kernel: a term of k factors is a polynomial of
+    degree k in t, so min(k + 1, n_pts) evaluations fix it, each with k − 2
+    Montgomery products and one unreduced product for the last factor (the
+    sums are only needed mod q).  With an eq weight E (K4) a term of k ≥ 2
+    factors first takes E into its first factor's two entries (two more
+    Montgomery products a pair), and a term of one factor is multiplied by E
+    unreduced; a term of one factor without E needs no product."""
+    full = lazy = 0
+    for t in terms:
+        k, pts = len(t), min(len(t) + 1, n_pts)
+        if k == 1:
+            lazy += pts if gruen else 0
+            continue
+        lazy += pts
+        full += pts * (k - 2) + (2 if gruen else 0)
+    return pairs * full, pairs * lazy
+
+
+def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
+    """The kernels' calls at the paths' shapes, 2^log_n entries a table:
+    dicts of kernel name, shape label, ``kernel`` and ``plain`` (argument-free
+    calls), Montgomery and unreduced products (``full``, ``lazy``,
+    :func:`round_products`) and bytes moved.  The first case of each kernel
+    is the one its kernels-line row reports."""
+    import numpy as np
+
+    from zinc_tpu_torch.ops import field_kernels as fk
+    from zinc_tpu_torch.sumcheck import kernels as sk
+
+    rng = np.random.default_rng(seed)
+    n = 1 << log_n
+    h = n // 2
+    eb = 4 * ctx.n32  # bytes of a residue
+    a = random_residues(rng, ctx, (n,), device)
+    b = random_residues(rng, ctx, (n,), device)
+    sc1 = random_residues(rng, ctx, (3, n), device)  # Mz tables of sumcheck 1 (Gruen)
+    sc2 = random_residues(rng, ctx, (2, n), device)  # (γ-table, z) of sumcheck 2
+    e_lvl = random_residues(rng, ctx, (h,), device)  # suffix-eq level of round 1
+    r = random_residues(rng, ctx, (1,), "cpu")[0].numpy().view(np.uint32)
+    sc7 = random_residues(rng, ctx, (7, n), device)  # path B's 7 factors
+    sc6 = random_residues(rng, ctx, (6, n), device)  # path A's 5 Mz tables + eq
+    tail7 = sc7[:, :128].contiguous()  # path B's last device fold (2·HOST_TAIL entries)
+    gruen_terms, classic_terms = [(0, 1), (2,)], [(0, 1)]
+    t7, t_a = [tuple(range(7))], [(0, 1, 2, 3, 5), (4, 5)]
+    sz = f"2^{log_n}"
+
+    def case(name, shape, kernel, plain, products, n_bytes):
+        full, lazy = products if isinstance(products, tuple) else (products, 0)
+        return {"name": name, "shape": shape, "kernel": kernel, "plain": plain,
+                "full": full, "lazy": lazy, "bytes": n_bytes}
+
+    def folded_round(n_fold, terms, n_pts):
+        # K10: one Montgomery product per folded entry, then the round
+        full, lazy = round_products(h // 2, terms, n_pts)
+        return n_fold + full, lazy
+
+    return [
+        case("mont_mul", sz, lambda: fk.mont_mul(ctx, a, b), lambda: fk.mont_mul_plain(ctx, a, b),
+             n, 3 * n * eb),
+        case("fold", f"3 x {sz}", lambda: sk.fold(ctx, sc1, r), lambda: sk.fold_plain(ctx, sc1, r),
+             3 * h, 3 * (n + h) * eb),
+        case("round_eval", f"2 x {sz}, 1 term, 3 points",
+             lambda: sk.round_eval(ctx, sc2, classic_terms, 3),
+             lambda: sk.round_eval_plain(ctx, sc2, classic_terms, 3),
+             round_products(h, classic_terms, 3), 2 * n * eb),
+        case("round_eval_gruen", f"3 x {sz} + E, 2 terms, 4 points",
+             lambda: sk.round_eval_gruen(ctx, sc1, e_lvl, gruen_terms, 4),
+             lambda: sk.round_eval_gruen_plain(ctx, sc1, e_lvl, gruen_terms, 4),
+             round_products(h, gruen_terms, 4, gruen=True), (3 * n + h) * eb),
+        case("round_eval_generic", f"path B: 7 x {sz}, 1 term of 7, 8 points",
+             lambda: sk.round_eval_generic(ctx, sc7, t7, 8),
+             lambda: sk.round_eval_generic_plain(ctx, sc7, t7, 8),
+             round_products(h, t7, 8), 7 * n * eb),
+        case("round_eval_generic", f"path A: 6 x {sz}, terms of 5 and 2, 6 points",
+             lambda: sk.round_eval_generic(ctx, sc6, t_a, 6),
+             lambda: sk.round_eval_generic_plain(ctx, sc6, t_a, 6),
+             round_products(h, t_a, 6), 6 * n * eb),
+        case("fold_round_eval", f"path A: 6 x {sz} -> 2^{log_n - 1}, terms of 5 and 2, 6 points",
+             lambda: sk.fold_round_eval(ctx, sc6, r, t_a, 6),
+             lambda: sk.fold_round_eval_plain(ctx, sc6, r, t_a, 6),
+             folded_round(6 * h, t_a, 6), 6 * (n + h) * eb),
+        case("fold_round_eval", f"path B: 7 x {sz} -> 2^{log_n - 1}, 1 term of 7, 8 points",
+             lambda: sk.fold_round_eval(ctx, sc7, r, t7, 8),
+             lambda: sk.fold_round_eval_plain(ctx, sc7, r, t7, 8),
+             folded_round(7 * h, t7, 8), 7 * (n + h) * eb),
+        case("fold", "path B's last: 7 x 128 -> 64", lambda: sk.fold(ctx, tail7, r),
+             lambda: sk.fold_plain(ctx, tail7, r), 7 * 64, 7 * (128 + 64) * eb),
+    ]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="checkout whose zinc_tpu_torch is timed")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_kernels needs a CUDA device")
+    import zinc_tpu_torch as zt
+    from zinc_tpu_torch.fields.montgomery import device_field
+
+    info = card()
+    print(json.dumps({"card": info, "root": str(Path(args.root).resolve()),
+                      "package": str(Path(zt.__file__).parent)}), flush=True)
+    ctx = device_field(zt.FieldConfig((1 << 255) + 95, 4))
+    for c in cases(ctx, "cuda"):
+        ms = device_ms(c["kernel"])
+        bound, by = bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"])
+        print(json.dumps({"name": c["name"], "shape": c["shape"], "ms": ms, "bound_ms": bound,
+                          "bound_by": by, "share_of_bound": bound / ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,9 +22,9 @@ import time
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig, Fp
-from .._host.sumcheck.verifier import SumcheckError, verify_as_subprotocol
-from .._host.transcript import KeccakTranscript
+from ..fields.config import FieldConfig, Fp
+from ..sumcheck.verifier import SumcheckError, verify_as_subprotocol
+from ..transcript import KeccakTranscript
 from ..fields import montgomery as fm
 from ..fields.montgomery import device_field
 from ..ops import _cuda

@@ -23,9 +23,10 @@
 // Bound: at 256 bits a 7-factor, 8-point term is 6·8 Montgomery products per
 // pair on 448 B read, far more work per byte than the fold, so the expected
 // bound is the integer pipes; not profiled (the warp sums and shared-memory
-// atomics below may cost as much as the products).  Registers are the scarce resource: K3 keeps every factor's stepping value
-// and every point's 64-bit accumulator in registers, which at 7 factors and
-// 9 points would need several hundred.  Here the loop runs over factors
+// atomics below may cost as much as the products).  Registers are the scarce
+// resource: a thread that kept every factor's stepping value and every
+// point's sum in registers would need several hundred at 7 factors and 9
+// points.  Here the loop runs over factors
 // outside and points inside, so a thread holds one factor's (value, step);
 // the partial product of each point waits in shared memory (laid out
 // [point][word][thread], so a warp's accesses hit 32 banks), and each
@@ -48,13 +49,22 @@ struct Comb {
 // __restrict__, so it stays on the coherent path.
 template <int N>
 __device__ __forceinline__ void load_elem_rw(uint32_t (&x)[N], const uint32_t* p) {
+    if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < N; i += 4) {
-        const uint4 v = *reinterpret_cast<const uint4*>(p + i);
-        x[i] = v.x;
-        x[i + 1] = v.y;
-        x[i + 2] = v.z;
-        x[i + 3] = v.w;
+        for (int i = 0; i < N; i += 4) {
+            const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+            x[i] = v.x;
+            x[i + 1] = v.y;
+            x[i + 2] = v.z;
+            x[i + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; i += 2) {
+            const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+            x[i] = v.x;
+            x[i + 1] = v.y;
+        }
     }
 }
 
@@ -208,15 +218,6 @@ static int make_comb(Comb& c, const int* start, const int* fac, int n_terms) {
         c.start[j] = start[j];
     }
     for (int k = 0; k < start[n_terms]; ++k) c.fac[k] = fac[k];
-    return 0;
-}
-
-template <typename K>
-static int prepare_smem(K kernel, int64_t smem) {
-    if (smem > ZT_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024)
-        return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
     return 0;
 }
 

@@ -5,7 +5,7 @@
 // terms); a block keeps its 64-bit sums (ZT_GEN_SUM_BYTES per term, point
 // and word) and its partial products (ZT_GEN_PROD_BYTES per point, word and
 // thread) in dynamic shared memory, at most ZT_SMEM_LIMIT bytes (the H100's
-// opt-in limit per block).
+// opt-in limit per block); prepare_smem below applies it to a launch.
 
 #pragma once
 
@@ -15,3 +15,17 @@
 #define ZT_GEN_SUM_BYTES 8
 #define ZT_GEN_PROD_BYTES 4
 #define ZT_SMEM_LIMIT 232448
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory (above the
+// default 48 KB); refuses more than ZT_SMEM_LIMIT.
+template <typename K>
+static int prepare_smem(K kernel, int64_t smem) {
+    if (smem > ZT_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024)
+        return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    return 0;
+}

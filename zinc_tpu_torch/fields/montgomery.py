@@ -23,13 +23,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig
+from ..fields.config import FieldConfig
 
 M32 = 0xFFFFFFFF
 M16 = 0xFFFF
-
-# word counts the CUDA kernels are instantiated for (128 to 512 bits)
-KERNEL_WORDS = (4, 8, 12, 16)
 
 
 @dataclass(frozen=True)

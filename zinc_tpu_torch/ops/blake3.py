@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .._host.hashing.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
+from ..hashing.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
 
 M32 = 0xFFFFFFFF
 

@@ -40,8 +40,8 @@ def mont_mul(ctx: fm.DeviceField, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
     av = a.expand(shape).reshape(-1, n).contiguous()
     bv = b.expand(shape).reshape(-1, n).contiguous()
     out = torch.empty_like(av)
-    q = _cuda.host_words(ctx.q)
-    rc = _cuda.lib().zt_mont_mul(
+    q = _cuda.modulus_words(ctx)
+    rc = _cuda.lib(n).zt_mont_mul(
         out.data_ptr(), av.data_ptr(), bv.data_ptr(), av.shape[0], n,
         q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
     )

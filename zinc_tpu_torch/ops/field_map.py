@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig
+from ..fields.config import FieldConfig
 from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField, device_field
 from .field_kernels import mont_mul

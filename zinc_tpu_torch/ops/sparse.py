@@ -17,8 +17,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig
-from .._host.sparse import SparseMatrix
+from ..fields.config import FieldConfig
+from ..sparse import SparseMatrix
 from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField, device_field
 from ..poly.device import build_eq_table_device, limbs_to_fp

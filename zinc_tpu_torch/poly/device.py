@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig, Fp
+from ..fields.config import FieldConfig, Fp
 from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField, device_field
 from ..ops.field_kernels import mont_mul

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import struct
 
-from ._host.fields.config import FieldConfig, Fp
-from ._host.spartan import SpartanProof
+from .fields.config import FieldConfig, Fp
+from .spartan import SpartanProof
 from .zinc import ZincProof, ZipProof
 from .zip.pcs import ZipCommitment
 

@@ -14,10 +14,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ._host.ccs import CCS, Statement
-from ._host.fields.config import FieldConfig
-from ._host.spartan import SpartanProof, squeeze_beta_challenges, squeeze_gamma_challenge
-from ._host.transcript import KeccakTranscript
+from .ccs import CCS, Statement
+from .fields.config import FieldConfig
+from .spartan import SpartanProof, squeeze_beta_challenges, squeeze_gamma_challenge
+from .transcript import KeccakTranscript
 from .fields import montgomery as fm
 from .fields.montgomery import device_field
 from .ops.field_kernels import mont_mul

@@ -18,8 +18,9 @@ are those of the classic sumcheck.
 Rounds whose table has at most ``HOST_TAIL`` entries finish on the host
 with the reference's host prover; transcripts do not depend on the split.
 
-A combination outside K3's scope (a term of 1 or more than 4 factors, or
-more than 5 points), when Gruen does not apply, goes whole to the generic
+A combination outside K3's scope (a term of 1 or more than 4 factors, more
+than 5 points, or more terms than its launch holds), when Gruen does not
+apply, goes whole to the generic
 tier, ``executor.py`` (``zinc_tpu/sumcheck/device_fs.py:284,332-351``).
 """
 
@@ -27,9 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from .._host.fields.config import FieldConfig, Fp
-from .._host.sumcheck.prover import _absorb_nvars_degree, _fold, _round_evals
-from .._host.transcript import KeccakTranscript
+from ..fields.config import FieldConfig, Fp
+from ..sumcheck.prover import _absorb_nvars_degree, _fold, _round_evals
+from ..transcript import KeccakTranscript
 from ..fields.montgomery import device_field
 from ..ops.field_kernels import mont_mul
 from ..poly.device import eq_levels, fps_to_limbs, fps_to_tensor, tensor_to_fps
@@ -55,7 +56,8 @@ def uses_generic(cfg: FieldConfig, comb, degree: int) -> bool:
     some term is outside K3's scope (``device_fs.py:284``), or the degree
     needs more points than K3 takes."""
     idx_terms = [tuple(idxs) for _, idxs in comb]
-    return not kernels.classic_supported(idx_terms, 2 * cfg.n64) or degree + 1 > kernels.MAX_POINTS
+    return degree + 1 > kernels.MAX_POINTS or not kernels.classic_supported(
+        idx_terms, 2 * cfg.n64, degree + 1)
 
 
 def prove_as_subprotocol_device(

@@ -21,9 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from .._host.fields.config import FieldConfig, Fp
-from .._host.sumcheck.prover import _absorb_nvars_degree, _fold, _round_evals
-from .._host.transcript import KeccakTranscript
+from ..fields.config import FieldConfig, Fp
+from ..sumcheck.prover import _absorb_nvars_degree, _fold, _round_evals
+from ..transcript import KeccakTranscript
 from ..fields.montgomery import device_field
 from ..poly.device import fps_to_limbs, tensor_to_fps
 from . import kernels

@@ -13,18 +13,20 @@
   (K10): the fold and the generic evaluation in one launch.
 
 The CUDA sources are ``csrc/sumcheck.cu`` (fold, K3, K4) and
-``csrc/generic.cu``; their header notes say what bounds each kernel on the
+``csrc/generic.cu``, built per field width (``ops/_cuda.py``); their header
+notes say what bounds each kernel on the
 H100 and what the design does about it.  Tables are (n_tables, B, n32)
 int32 tensors in natural order: a round pairs entries (2p, 2p+1).  A fold
 writes a fresh (n_tables, B/2, n32) output.
 
-The evaluations return, per term and point t, the exact sums of the term's
-products over all pairs as int64 word columns (lazy: a word column may
-exceed 2^32).  Those sums are linear, so the term's coefficient, the
-reduction mod q and, for K4, the Gruen factor pref·c_j(t) are applied
-afterwards (``sumcheck/executor.py:round_values``), on the host, where the
-Fiat-Shamir transcript needs the round values anyway.  K3 and K4 launch once
-per term; the generic kernels once for the whole combination.
+K3 and K4 return, per term and point t, the round sums reduced mod q:
+(n_terms, n_pts, n32) int32 canonical residues, from one launch per round
+for the whole combination.  The generic kernels return the exact sums of
+each term's products over all pairs as int64 word columns (lazy: a word
+column may exceed 2^32).  Either form is linear in the products, so the
+term's coefficient, the reduction mod q and, for K4, the Gruen factor
+pref·c_j(t) are applied afterwards (``sumcheck/executor.py:round_values``),
+on the host, where the Fiat-Shamir transcript needs the round values anyway.
 
 Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -32,6 +34,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import re
 
 import numpy as np
@@ -41,8 +45,6 @@ from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField
 from ..ops import _cuda
 
-MAX_FACTORS = 4  # factors per term the kernels take (K4: plus the eq weight)
-MAX_POINTS = 5  # evaluation points per round (degree ≤ 4)
 MAX_WORDS = 16  # ≤ 512-bit fields, as mxu_exec.mxu_supported
 
 
@@ -52,22 +54,57 @@ def _header_defines(name: str) -> dict[str, int]:
     return {k: int(v) for k, v in re.findall(r"^#define (\w+) (\d+)$", text, re.M)}
 
 
-# the generic kernels' scope, as csrc/generic.cuh states it for both sides
+# the kernels' scope, as csrc/generic.cuh and csrc/round_eval.cuh state it
+# for both sides
 GENERIC_LIMITS = _header_defines("generic.cuh")
+EVAL_LIMITS = _header_defines("round_eval.cuh")
+MAX_FACTORS = EVAL_LIMITS["ZT_EVAL_MAX_FACTORS"]  # factors per term of K3 (K4: one fewer, plus E)
+MAX_POINTS = EVAL_LIMITS["ZT_EVAL_MAX_POINTS"]  # evaluation points per round (degree ≤ 4)
 
 
-def classic_supported(idx_terms, n32: int) -> bool:
+def eval_slots(terms) -> int:
+    """Running sums of a K3/K4 launch: a term of k factors is a polynomial of
+    degree k in t, so k + 1 sums fix it (its values at t = 0..k−1 and its
+    leading coefficient) and the points follow from those
+    (``sumcheck.cu:extend_points``)."""
+    return sum(len(t) + 1 for t in terms)
+
+
+def eval_block(n_slots: int, n32: int) -> int:
+    """Threads of a K3/K4 block with ``n_slots`` running sums of 2·n32 + 1
+    words each, the one place this is decided (the launch takes it): the
+    largest power of two from ZT_EVAL_BLOCK down to ZT_EVAL_MIN_BLOCK whose
+    shared memory fits, 0 if none does."""
+    lim = EVAL_LIMITS
+
+    def smem(t):
+        return n_slots * (2 * n32 + 1) * lim["ZT_EVAL_ACC_BYTES"] * t
+
+    t = lim["ZT_EVAL_BLOCK"]
+    while t > lim["ZT_EVAL_MIN_BLOCK"] and smem(t) > GENERIC_LIMITS["ZT_SMEM_LIMIT"]:
+        t //= 2
+    return t if smem(t) <= GENERIC_LIMITS["ZT_SMEM_LIMIT"] else 0
+
+
+def _eval_fits(terms, n32: int) -> bool:
+    return (n32 <= MAX_WORDS and 1 <= len(terms) <= EVAL_LIMITS["ZT_EVAL_MAX_TERMS"]
+            and eval_block(eval_slots(terms), n32) > 0)
+
+
+def classic_supported(idx_terms, n32: int, n_pts: int = MAX_POINTS) -> bool:
     """What K3 takes: terms of 2-4 factors over ≤ 512-bit fields
-    (``mxu_exec.py:mxu_supported``)."""
-    return n32 <= MAX_WORDS and all(2 <= len(t) <= 4 for t in idx_terms)
+    (``mxu_exec.py:mxu_supported``), as many as its launch holds, at more
+    points than any term has factors (a round's degree bounds its terms')."""
+    return all(2 <= len(t) <= 4 and len(t) < n_pts for t in idx_terms) and _eval_fits(idx_terms, n32)
 
 
-def gruen_supported(idx_terms, eq_idx: int, n32: int) -> bool:
+def gruen_supported(idx_terms, eq_idx: int, n32: int, n_pts: int = MAX_POINTS) -> bool:
     """What K4 takes: every term ends with the eq index and has 1-3 other
-    factors (``mxu_exec.py:gruen_supported``)."""
-    return n32 <= MAX_WORDS and all(
-        len(t) >= 2 and t[-1] == eq_idx and 1 <= len(t) - 1 <= 3 for t in idx_terms
-    )
+    factors (``mxu_exec.py:gruen_supported``), fewer than the points."""
+    return all(
+        len(t) >= 2 and t[-1] == eq_idx and 1 <= len(t) - 1 <= 3 and len(t) - 1 < n_pts
+        for t in idx_terms
+    ) and _eval_fits([t[:-1] for t in idx_terms], n32)
 
 
 def _check_tables(ctx: DeviceField, tables: torch.Tensor) -> None:
@@ -140,8 +177,8 @@ def fold(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray) -> torch.Tensor:
     out = torch.empty((n_tab, b // 2, n), dtype=torch.int32, device=tables.device)
     if out.numel() == 0:
         return out
-    rw, q = _cuda.host_words(r), _cuda.host_words(ctx.q)
-    rc = _cuda.lib().zt_fold(
+    rw, q = _cuda.host_words(r), _cuda.modulus_words(ctx)
+    rc = _cuda.lib(n).zt_fold(
         out.data_ptr(), tables.data_ptr(), n_tab * (b // 2), n, rw.ctypes.data,
         q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
     )
@@ -156,7 +193,7 @@ def fold(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray) -> torch.Tensor:
 
 
 def _term_sums_plain(ctx, tables, term, n_pts, weight=None) -> torch.Tensor:
-    """(n_pts, n32) int64 word sums of Π_k M_k(t, p) [· weight[p]] over p."""
+    """(n_pts, n32) int64 exact word sums of Π_k M_k(t, p) [· weight[p]] over p."""
     vals = [tables[i, 0::2] for i in term]
     steps = [fm.mont_sub(ctx, tables[i, 1::2], tables[i, 0::2]) for i in term]
     out = []
@@ -171,43 +208,84 @@ def _term_sums_plain(ctx, tables, term, n_pts, weight=None) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _reduced(ctx, tables, sums) -> torch.Tensor:
+    """Exact sums over the tables' pairs → canonical residues mod q."""
+    return fm.reduce_lazy(ctx, sums, tables.shape[1] // 2)
+
+
 def round_eval_plain(ctx, tables, terms, n_pts) -> torch.Tensor:
-    return torch.stack([_term_sums_plain(ctx, tables, t, n_pts) for t in terms])
+    """K3's plain version: (n_terms, n_pts, n32) residues of the round sums."""
+    return _reduced(ctx, tables, torch.stack([_term_sums_plain(ctx, tables, t, n_pts) for t in terms]))
 
 
 def round_eval_gruen_plain(ctx, tables, e_level, terms, n_pts) -> torch.Tensor:
-    return torch.stack([_term_sums_plain(ctx, tables, t, n_pts, e_level) for t in terms])
+    """K4's plain version: (n_terms, n_pts, n32) residues of the round sums."""
+    return _reduced(ctx, tables, torch.stack([_term_sums_plain(ctx, tables, t, n_pts, e_level)
+                                              for t in terms]))
+
+
+# (device, n32, gruen, n_slots, block) -> the most blocks resident at once
+_EVAL_GRID: dict[tuple, int] = {}
+
+
+def _eval_max_grid(lib, dev, n32: int, gruen: bool, n_slots: int, block: int) -> int:
+    key = (dev, n32, gruen, n_slots, block)
+    if key not in _EVAL_GRID:
+        max_grid = ctypes.c_int(0)
+        _cuda.check(lib.zt_eval_max_grid(int(gruen), n_slots, n32, block,
+                                          ctypes.addressof(max_grid)), "zt_eval_max_grid")
+        _EVAL_GRID[key] = max_grid.value
+    return _EVAL_GRID[key]
+
+
+@functools.lru_cache(maxsize=64)
+def _eval_comb(terms: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """(factor counts, factor indices padded to MAX_FACTORS) of a combination."""
+    n_fac = np.asarray([len(t) for t in terms], dtype=np.int32)
+    fac = np.zeros((len(terms), MAX_FACTORS), dtype=np.int32)
+    for j, t in enumerate(terms):
+        fac[j, : len(t)] = t
+    return n_fac, fac
 
 
 def _eval_launch(fn_name, ctx, tables, terms, n_pts, e_level=None) -> torch.Tensor:
-    _cuda.require_kernel_words(ctx.n32)
-    lib = _cuda.lib()
-    n_tab, b, n = tables.shape
+    """One K3/K4 launch for the whole combination: one buffer holds the
+    output (its first row), the blocks' rows and, in its last word, the
+    launch's own count of finished blocks (zeroed on the launch's stream)."""
+    n = ctx.n32
+    _cuda.require_kernel_words(n)
+    lib = _cuda.lib(n)
+    dev = tables.device
+    b = tables.shape[1]
     pairs = b // 2
-    blocks = lib.zt_eval_blocks(pairs)
-    q = _cuda.host_words(ctx.q)
-    outs = []
-    for term in terms:
-        partial = torch.empty((blocks, n_pts * n), dtype=torch.int64, device=tables.device)
-        fac = np.asarray(term, dtype=np.int32)
-        args = [partial.data_ptr(), tables.data_ptr(), b, pairs]
-        if e_level is not None:
-            args.append(e_level.data_ptr())
-        args += [fac.ctypes.data, len(term), n_pts, n, q.ctypes.data, ctx.nprime32,
-                 _cuda.stream_ptr()]
-        _cuda.check(getattr(lib, "zt_" + fn_name)(*args), fn_name)
-        _cuda.LAUNCHES[fn_name] += 1
-        outs.append(partial.sum(dim=0).reshape(n_pts, n))
-    return torch.stack(outs)
+    n_slots = len(terms) * n_pts  # output residues (a block's row needs at most as many)
+    n_fac, fac = _eval_comb(tuple(map(tuple, terms)))
+    wide_slots = eval_slots(terms)
+    block = eval_block(wide_slots, n)
+    max_grid = _eval_max_grid(lib, dev, n, e_level is not None, wide_slots, block)
+    grid = max(1, min(-(-pairs // block), max_grid))
+    rows = (grid + 1) * n_slots * n
+    buf = torch.empty(rows + 1, dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    rc = lib.zt_round_eval(
+        ptr, ptr + 4 * n_slots * n, ptr + 4 * rows, tables.data_ptr(), b, pairs,
+        None if e_level is None else e_level.data_ptr(), n_fac.ctypes.data, fac.ctypes.data,
+        len(terms), n_pts, block, grid, n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32,
+        _cuda.stream_ptr(),
+    )
+    _cuda.check(rc, fn_name)
+    _cuda.LAUNCHES[fn_name] += 1
+    return buf[: n_slots * n].view(len(terms), n_pts, n)
 
 
 def round_eval(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int) -> torch.Tensor:
-    """Classic round sums: (n_terms, n_pts, n32) int64 word columns of
-    Σ_p Π_{k∈term} M_k(t, p), t = 0..n_pts−1."""
+    """Classic round sums: (n_terms, n_pts, n32) residues of
+    Σ_p Π_{k∈term} M_k(t, p) mod q, t = 0..n_pts−1."""
     _check_tables(ctx, tables)
     _check_terms(terms, tables.shape[0], MAX_FACTORS, n_pts)
-    if not classic_supported(terms, ctx.n32):
-        raise ValueError(f"round_eval: terms {terms} at {ctx.n32} words are outside K3's scope")
+    if not classic_supported(terms, ctx.n32, n_pts):
+        raise ValueError(f"round_eval: terms {terms} at {n_pts} points and {ctx.n32} words are "
+                         "outside K3's scope")
     if not tables.is_cuda:
         return round_eval_plain(ctx, tables, terms, n_pts)
     return _eval_launch("round_eval", ctx, tables, terms, n_pts)
@@ -216,16 +294,17 @@ def round_eval(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int) -> tor
 def round_eval_gruen(
     ctx: DeviceField, tables: torch.Tensor, e_level: torch.Tensor, terms, n_pts: int
 ) -> torch.Tensor:
-    """Gruen round sums: (n_terms, n_pts, n32) int64 word columns of
-    Σ_p E[p]·Π_{k∈term} M_k(t, p); ``terms`` exclude the eq index and
+    """Gruen round sums: (n_terms, n_pts, n32) residues of
+    Σ_p E[p]·Π_{k∈term} M_k(t, p) mod q; ``terms`` exclude the eq index and
     ``e_level`` is the suffix-eq level aligned with the pairs."""
     _check_tables(ctx, tables)
     _check_terms(terms, tables.shape[0], MAX_FACTORS - 1, n_pts)
     _cuda.require_field_tensor("e_level", e_level, ctx.n32, 2)
     if e_level.shape[0] != tables.shape[1] // 2 or e_level.device != tables.device:
         raise ValueError(f"e_level: expected {tables.shape[1] // 2} entries on {tables.device}")
-    if ctx.n32 > MAX_WORDS:
-        raise ValueError(f"round_eval_gruen: {ctx.n32} words are outside K4's scope")
+    if not _eval_fits(terms, ctx.n32) or any(len(t) >= n_pts for t in terms):
+        raise ValueError(f"round_eval_gruen: terms {terms} at {n_pts} points and {ctx.n32} words "
+                         "are outside K4's scope")
     if not tables.is_cuda:
         return round_eval_gruen_plain(ctx, tables, e_level, terms, n_pts)
     return _eval_launch("round_eval_gruen", ctx, tables, terms, n_pts, e_level)
@@ -236,9 +315,15 @@ def round_eval_gruen(
 # ---------------------------------------------------------------------------
 
 
+def round_eval_generic_plain(ctx, tables, terms, n_pts) -> torch.Tensor:
+    """The generic kernels' plain sums: (n_terms, n_pts, n32) int64 exact
+    word columns."""
+    return torch.stack([_term_sums_plain(ctx, tables, t, n_pts) for t in terms])
+
+
 def fold_round_eval_plain(ctx, tables, r, terms, n_pts):
     folded = fold_plain(ctx, tables, r)
-    return folded, round_eval_plain(ctx, folded, terms, n_pts)
+    return folded, round_eval_generic_plain(ctx, folded, terms, n_pts)
 
 
 def _comb_arrays(terms):
@@ -250,12 +335,12 @@ def _generic_launch(name, ctx, tables, terms, n_pts, pairs, args_mid):
     """Launch ``zt_<name>`` on ``pairs`` eval pairs; returns the summed
     (n_terms, n_pts, n32) int64 sums."""
     _cuda.require_kernel_words(ctx.n32)
-    lib = _cuda.lib()
     n = ctx.n32
+    lib = _cuda.lib(n)
     partial = torch.empty((lib.zt_gen_blocks(pairs), len(terms) * n_pts * n), dtype=torch.int64,
                           device=tables.device)
     start, fac = _comb_arrays(terms)
-    q = _cuda.host_words(ctx.q)
+    q = _cuda.modulus_words(ctx)
     rc = getattr(lib, "zt_" + name)(
         partial.data_ptr(), *args_mid, start.ctypes.data, fac.ctypes.data, len(terms), n_pts, n,
         q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
@@ -272,7 +357,7 @@ def round_eval_generic(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int
     _check_tables(ctx, tables)
     _check_generic(ctx, tables, terms, n_pts)
     if not tables.is_cuda:
-        return round_eval_plain(ctx, tables, terms, n_pts)
+        return round_eval_generic_plain(ctx, tables, terms, n_pts)
     b = tables.shape[1]
     return _generic_launch("round_eval_generic", ctx, tables, terms, n_pts, b // 2,
                            (tables.data_ptr(), b, b // 2))
@@ -297,8 +382,9 @@ def fold_round_eval(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray, terms
 
 
 def sums_to_ints(ctx: DeviceField, sums: torch.Tensor) -> np.ndarray:
-    """Lazy int64 word sums (..., n32) → object array of the sums mod q."""
-    arr = sums.detach().cpu().numpy()
+    """Round sums (..., n32) → object array of the sums mod q: int32
+    residues (K3/K4) or lazy int64 word sums (the generic kernels)."""
+    arr = fm.to_numpy(sums) if sums.dtype == torch.int32 else sums.detach().cpu().numpy()
     flat = arr.reshape(-1, arr.shape[-1])
     vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % ctx.modulus for row in flat]
     return np.array(vals, dtype=object).reshape(arr.shape[:-1])

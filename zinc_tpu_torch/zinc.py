@@ -7,8 +7,9 @@ proves its evaluation at r_y.  The verifier re-derives the field, verifies
 Spartan, verifies the PCS opening and closes with
 Σⱼ γʲ·M̃ⱼ(r_x‖r_y)·v == e_y, evaluated sparsely on the device.
 
-Both take an explicit ``device``; proofs are byte-identical to the JAX
-package's for the same inputs.  A sharded ``mesh`` is not part of the port.
+Both run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``, and raise when there is no card; proofs are
+byte-identical to the JAX package's for the same inputs.  A sharded ``mesh`` is not part of the port.
 """
 
 from __future__ import annotations
@@ -18,13 +19,14 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ._host.ccs import CCS, Statement, Witness
-from ._host.fields.config import FieldConfig, Fp
-from ._host.prime import draw_random_field
-from ._host.spartan import SpartanError, SpartanProof, lin_comb_gamma, spartan_verify
-from ._host.transcript import KeccakTranscript
-from ._host.zip.code import DefaultLinearCodeSpec, LinearCodeSpec, RaaCode, ZipTypes
-from ._host.zip.transcript import PcsTranscript
+from .ccs import CCS, Statement, Witness
+from .fields.config import FieldConfig, Fp
+from .prime import draw_random_field
+from .spartan import SpartanError, SpartanProof, lin_comb_gamma, spartan_verify
+from .transcript import KeccakTranscript
+from .zip.code import DefaultLinearCodeSpec, LinearCodeSpec, RaaCode, ZipTypes
+from .zip.transcript import PcsTranscript
+from .ops._cuda import target_device
 from .timing import timed
 from .zip.pcs import ZipCommitment, setup, verify_poly
 
@@ -56,12 +58,12 @@ def _z_vector(statement: Statement, wit: Witness, ccs: CCS) -> list[int]:
 class ZincProver:
     """Top-level prover; every hot path runs on ``device``."""
 
-    def __init__(self, zt: ZipTypes, lc_spec: LinearCodeSpec | None = None, device="cpu", mesh=None):
+    def __init__(self, zt: ZipTypes, lc_spec: LinearCodeSpec | None = None, device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError("the port proves on one device; mesh is not supported")
         self.zt = zt
         self.lc_spec = lc_spec or DefaultLinearCodeSpec()
-        self.device = device
+        self.device = target_device(device)
 
     def prove(
         self, statement: Statement, wit: Witness, transcript: KeccakTranscript, ccs: CCS,
@@ -97,10 +99,10 @@ class ZincVerifier:
     ``device`` in background threads, under the host-side Spartan and PCS
     checks; every worker is joined before the verifier raises."""
 
-    def __init__(self, zt: ZipTypes, lc_spec: LinearCodeSpec | None = None, device="cpu"):
+    def __init__(self, zt: ZipTypes, lc_spec: LinearCodeSpec | None = None, device="cuda"):
         self.zt = zt
         self.lc_spec = lc_spec or DefaultLinearCodeSpec()
-        self.device = device
+        self.device = target_device(device)
         # (statement, q, DeviceCsr list): a verifier checks many proofs of
         # one circuit, so the matrix upload is kept
         self._csr_cache: tuple | None = None

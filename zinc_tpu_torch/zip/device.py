@@ -18,8 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig
-from .._host.zip.transcript import PcsTranscript
+from ..fields.config import FieldConfig
+from ..zip.transcript import PcsTranscript
 from ..fields import montgomery as fm
 from ..fields.integers import (
     combine_rows_signed,

@@ -2,8 +2,8 @@
 
 The port of ``zinc_tpu/zip/pcs.py:191-475``.  The verifier squeezes every
 column index first, parses all opened records in one numpy pass, folds the
-Merkle paths with the native runtime (``native/zinc_native.cpp``, reached
-through ``_host.native``) and runs the two proximity checks on the device,
+Merkle paths with the port's native runtime (``csrc/zinc_native.cpp``,
+loaded by ``native.py``) and runs the two proximity checks on the device,
 in a background thread that the host joins before it raises.
 """
 
@@ -15,14 +15,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._host.fields.config import FieldConfig, Fp
-from .._host.hashing.blake3 import blake3
-from .._host.native import blake3_batch, merkle_fold_batch_strided
-from .._host.poly.mle import build_eq_x_r_vec
-from .._host.zip.merkle import verify_merkle_path
-from .._host.zip.transcript import PcsTranscript
+from ..fields.config import FieldConfig, Fp
+from ..hashing.blake3 import blake3
+from ..native import blake3_batch, merkle_fold_batch_strided
+from ..poly.mle import build_eq_x_r_vec
+from ..zip.merkle import verify_merkle_path
+from ..zip.transcript import PcsTranscript
 from ..fields import montgomery as fm
 from ..fields.integers import combine_rows_signed, ints_to_mag8, ints_to_words_signed
+from ..ops._cuda import target_device
 from ..ops.field_kernels import mont_mul
 from ..ops.field_map import _wide_to_field
 from ..poly.device import fps_to_tensor
@@ -102,8 +103,9 @@ def verify_poly(
     eval_claim: Fp,
     transcript: PcsTranscript,
     cfg: FieldConfig,
-    device="cpu",
+    device="cuda",
 ) -> None:
+    device = target_device(device)
     row_len = pp.code.row_len
     cw = pp.code.codeword_len()
     kw = pp.zt.k_words
