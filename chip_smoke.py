@@ -7,15 +7,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 0. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    kernels' build: the 6-, 8- and 16-word libraries (n64 = 3, 4, 8), every
    nvcc process at once, with each kernel's registers and spills, and the
-   IMADs in the SASS of each kernel (mont_mul_kernel's: one product);
+   instruction mix (IMAD, IADD3.X, other) in the SASS of mont_mul_kernel
+   (one product) and of the generic kernels, whole and in their largest
+   basic blocks (a pass's products);
 1. each CUDA kernel against its plain PyTorch version at the shapes the
-   paths below give it (2^20 tables at 256 bits, path B's last fold at
-   7 × 128) and at n64 = 3 (2^16 entries): exactly equal (every value is
-   an integer residue), with its device-only time (CUDA events around 20
-   back-to-back wrapper calls), its single-launch time (median of 7), the
-   plain time (median of 3) and its bound
-   (zinc_tpu_torch/benches/bench_kernels.py); then the generic eval against
-   K3 and K4 at their shapes, equal sums and both device-only times;
+   paths below give it (2^20 tables, path B's last fold at 7 × 128) at
+   n64 = 4 and n64 = 3: exactly equal (every value is an integer residue),
+   with its device-only time (CUDA events around 20 back-to-back wrapper
+   calls), its single-launch time (median of 7), the plain time (median of
+   3) and its bound (zinc_tpu_torch/benches/bench_kernels.py); then the
+   generic eval against K3 and K4 at their shapes, equal sums and both
+   device-only times; then fold_round_eval at each of the 13 round shapes of
+   paths A and B, with the sums over the rounds;
 2. 2^10: the port's prove reproduces tests/golden/proof_2p10.bin byte for
    byte through the kernels, its verifier accepts it, and both tamper
    probes are rejected; every kernel of the dummy-R1CS path launched, and
@@ -82,6 +85,7 @@ R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen")
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
 PATH_A_KERNELS = ("mont_mul", "fold", "round_eval") + GENERIC_KERNELS
 PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS
+GENERIC_ROWS = GENERIC_KERNELS  # the phase-1 rows that also report an issue-slot floor
 
 # sha256 of the path A proof at 2^10 (seed 1234): the JAX package's host
 # prover gives these bytes (tests/test_torch_generic.py holds the two equal)
@@ -156,29 +160,114 @@ def phase0() -> dict:
     for n in BUILD_WIDTHS:
         for line in ptxas_summary(_cuda.BUILD[n]["ptxas"]):
             log(f"[ptxas] {line}")
-    for line in sass_imads(_cuda.BUILD[8]["path"]):
+    for line in sass_mix(_cuda.BUILD[8]["path"]):
         log(f"[sass] {line}")
+    from zinc_tpu_torch.sumcheck.kernels import GENERIC_LIMITS
+
+    info["per_product"] = product_instructions(_cuda.BUILD[8]["path"], GENERIC_LIMITS["ZT_GEN_PASS"])
+    log(f"[sass] instructions a Montgomery product, an unreduced product and its sum "
+        f"(generic_round_kernel<8,0>): {info['per_product']}")
     return info
 
 
-def sass_imads(lib_path: str) -> list[str]:
-    """The IMAD instructions (every variant) of each kernel in a library's
-    SASS (cuobjdump).  mont_mul_kernel's count is one Montgomery product
-    plus its addressing."""
+SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_Z20generic_round_kernelILi8ELb1E...`` → ``generic_round_kernel<8,1>``."""
+    m = re.match(r"_Z(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    base, rest = m.group(2)[:n], m.group(2)[n:]
+    return base + "<" + ",".join(re.findall(r"L[ib](\d+)E", rest.split("EE")[0] + "E")) + ">"
+
+
+def _counts(ops: list[str]) -> tuple[int, int, int]:
+    """(IMAD, IADD3.X, other) instructions among ``ops``."""
+    imad = sum(o.startswith("IMAD") for o in ops)
+    xadd = sum(o.startswith("IADD3") and ".X" in o for o in ops)
+    return imad, xadd, len(ops) - imad - xadd
+
+
+def _mix(ops: list[str]) -> str:
+    return "{} IMAD / {} IADD3.X / {} other".format(*_counts(ops))
+
+
+def sass_blocks(lib_path: str, kernels=SASS_KERNELS) -> dict[str, tuple[list, list]]:
+    """Each of ``kernels`` in a library's SASS (cuobjdump): its instructions'
+    opcodes but NOPs, and its basic blocks (straight-line code between labels
+    and branches), largest first."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = _kernel_name(chunk.split("\n", 1)[0].strip())
+        if not name.startswith(kernels):
+            continue
+        ops, blocks, cur = [], [], []
+        for line in chunk.splitlines():
+            if re.match(r"\s*\.L_x_\d+:", line):
+                blocks.append(cur)
+                cur = []
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if not m or m.group(1) == "NOP":
+                continue
+            ops.append(m.group(1))
+            cur.append(m.group(1))
+            if m.group(1).split(".")[0] in ("BRA", "EXIT", "RET", "CALL", "BRX", "JMP"):
+                blocks.append(cur)
+                cur = []
+        blocks.append(cur)
+        out[name] = (ops, sorted(blocks, key=len, reverse=True))
+    return out
+
+
+def sass_mix(lib_path: str, kernels=SASS_KERNELS, top: int = 2) -> list[str]:
+    """The instruction mix of each of ``kernels`` (IMADs of every variant,
+    IADD3s with carry-in, all other instructions but NOPs), for the whole
+    function and for its ``top`` largest basic blocks, which in the generic
+    kernel are a pass's products.  mont_mul_kernel's largest block is one
+    Montgomery product with its loads and store."""
     try:
-        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
+        found = sass_blocks(lib_path, kernels)
     except (OSError, subprocess.SubprocessError) as e:
         return [f"cuobjdump failed: {type(e).__name__}"]
-    out = []
-    for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split("\n", 1)[0].strip()
-        imads = len(re.findall(r"\bIMAD[.A-Z0-9]*\s", chunk))
-        out.append(f"{name}: {imads} IMAD")
-    return out
+    return [f"{name}: {_mix(ops)} (whole); largest blocks: "
+            + "; ".join(f"{len(b)} = {_mix(b)}" for b in blocks[:top])
+            for name, (ops, blocks) in found.items()]
+
+
+def product_instructions(lib_path: str, run: int) -> tuple[float, float] | None:
+    """Instructions of one Montgomery product and of one unreduced product
+    with its sum, as the generic kernel's SASS forms them (8 words): its
+    largest basic block is a pass of ``run`` Montgomery products; a pass of
+    ``run`` unreduced products is the largest block with 40-70% of its
+    IMADs.  None where the SASS shows no such blocks."""
+    try:
+        found = sass_blocks(lib_path, ("generic_round_kernel",))
+    except (OSError, subprocess.SubprocessError):
+        return None
+    blocks = found.get("generic_round_kernel<8,0>", ([], []))[1]
+    if not blocks:
+        return None
+    top = _counts(blocks[0])[0]
+    lazy = [b for b in blocks[1:] if 0.4 * top <= _counts(b)[0] <= 0.7 * top]
+    return (len(blocks[0]) / run, len(lazy[0]) / run) if lazy else None
+
+
+def issue_floor_ms(full: int, lazy: int, per_product: tuple[float, float], max_sm_mhz: float) -> float:
+    """The least time the card could issue the products' instructions of a
+    call: full Montgomery and lazy unreduced products at the per-product
+    instructions of :func:`product_instructions`, over 132 SMs × 4 warp
+    instructions a clock × 32 threads × the SM clock.  Only the products
+    count, so it is a floor."""
+    instr = full * per_product[0] + lazy * per_product[1]
+    return instr / (132 * 4 * 32 * max_sm_mhz * 1e6) * 1e3
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -190,7 +279,7 @@ def ptxas_summary(report: str) -> list[str]:
         if m:
             n = int(m.group(1))
             base, rest = m.group(2)[:n], m.group(2)[n:]
-            name = base + "<" + ",".join(re.findall(r"L[ib](\d+)E", rest)) + ">"
+            name = _kernel_name(m.group(0))
             spill = ""
         elif name and "spill stores" in line:
             spill = line.strip()
@@ -240,7 +329,7 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
     from zinc_tpu_torch.fields.montgomery import device_field
 
     results = {}
-    for cfg, log_n in ((cfg8, 20), (cfg6, 16)):
+    for cfg, log_n in ((cfg8, 20), (cfg6, 20)):
         ctx = device_field(cfg)
         for c in bk.cases(ctx, "cuda", log_n):
             got, want = _flat(c["kernel"]()), _flat(c["plain"]())
@@ -251,11 +340,15 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
             ms, single_ms = bk.device_ms(c["kernel"]), _time_ms(c["kernel"])
             plain_ms = _time_ms(c["plain"], 3)
             bound, by = bk.bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"])
+            floor = ""
+            if ctx.n32 == 8 and c["name"] in GENERIC_ROWS and info["per_product"]:
+                floor = (f" issue-slot floor "
+                         f"{issue_floor_ms(c['full'], c['lazy'], info['per_product'], info['max_sm_mhz']):.4f} ms")
             log(f"[kernel] {c['name']} ({c['shape']}, {ctx.n32} words): shapes "
                 f"{[tuple(g.shape) for g in got]} max_abs_err {err} device-only {ms:.4f} ms "
                 f"single {single_ms:.4f} ms plain {plain_ms:.4f} ms bound {bound:.4f} ms ({by}; "
                 f"{c['full']} + {c['lazy']} unreduced products, {c['bytes']} bytes) "
-                f"share {bound / ms:.3f}")
+                f"share {bound / ms:.3f}{floor}")
             if not exact:
                 raise AssertionError(f"{c['name']}: kernel disagrees with its plain version")
             row = results.setdefault(c["name"], {
@@ -264,7 +357,27 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
             })
             row["max_abs_err"] = max(row["max_abs_err"], err)
         compare_generic(ctx, log_n)
+    k10_rounds(device_field(cfg8), info)
     return results
+
+
+def k10_rounds(ctx, info: dict) -> None:
+    """fold_round_eval's device-only time at each round shape of paths A and
+    B (bench_kernels.k10_rounds), with the sums over the rounds, beside the
+    bounds and their sums."""
+    from zinc_tpu_torch.benches import bench_kernels as bk
+
+    for path, rows in bk.k10_rounds(ctx, "cuda").items():
+        times = [bk.device_ms(row["kernel"]) for row in rows]
+        bounds = [bk.bound_ms(ctx.n32, row["bytes"], row["full"], row["lazy"], info["max_sm_mhz"])[0]
+                  for row in rows]
+        floors = (sum(issue_floor_ms(row["full"], row["lazy"], info["per_product"], info["max_sm_mhz"])
+                      for row in rows) if info["per_product"] else float("nan"))
+        log(f"[k10-rounds] path {path}, {len(rows)} rounds from 2^{rows[0]['b'].bit_length() - 1} "
+            f"to 2^{rows[-1]['b'].bit_length() - 1} entries, {ctx.n32} words: device-only (ms) "
+            f"{' '.join(f'{t:.4f}' for t in times)}; sum {sum(times):.4f} ms; bounds sum "
+            f"{sum(bounds):.4f} ms; issue-slot floors sum {floors:.4f} ms; sum of time - bound "
+            f"{sum(times) - sum(bounds):.4f} ms")
 
 
 def compare_generic(ctx, log_n: int) -> None:

@@ -32,7 +32,7 @@ from zinc_tpu_torch.sumcheck import device as sdev
 from zinc_tpu_torch.sumcheck import kernels
 from zinc_tpu_torch.sumcheck.executor import make_executor, prove_with_executor, round_values
 
-Q, Q384 = (1 << 255) + 95, (1 << 383) + 369
+Q, Q192, Q384, Q512 = (1 << 255) + 95, (1 << 191) + 5, (1 << 383) + 369, (1 << 511) + 187
 GENERIC_COEFF = 0x1234_5678_9ABC_DEF0_1357_9BDF_2468_ACE0
 SPARTAN_A = [(1, (0, 1, 2, 3, 5)), (-1, (4, 5))]  # path A's sumcheck 1, degree 5
 
@@ -42,6 +42,12 @@ ROUND_CASES = {
     "spartan-deg5": (Q, 4, 6, SPARTAN_A, 5),
     "1-factor-generic-coeff": (Q, 4, 4, [(GENERIC_COEFF, (2,)), (-1, (0, 1, 3))], 3),
     "384-bit": (Q384, 6, 5, [(3, (0, 1, 2, 3, 4)), (GENERIC_COEFF, (4,))], 5),
+    # k + 1 < n_pts: a term of two factors and one of one, extended to 6 points
+    "extended-terms": (Q, 4, 3, [(1, (0, 1)), (-1, (2,))], 5),
+    # n_pts ≤ k: the three points of a 5-factor term evaluated directly
+    "direct-points": (Q, 4, 5, [(1, (0, 1, 2, 3, 4)), (2, (1, 3, 4))], 2),
+    "192-bit": (Q192, 3, 4, [(1, (0, 1, 2)), (GENERIC_COEFF, (3,))], 4),
+    "512-bit": (Q512, 8, 3, [(1, (0, 1, 2, 1)), (-1, (2, 0))], 4),
 }
 
 
@@ -88,7 +94,8 @@ def test_generic_eval_plain_matches_xla_round_body(case):
     assert _port_values(cfg, sums, spec) == want
 
 
-@pytest.mark.parametrize("case", ["7-factor-deg7", "spartan-deg5", "384-bit"])
+@pytest.mark.parametrize("case", ["7-factor-deg7", "spartan-deg5", "384-bit", "direct-points",
+                                  "192-bit", "512-bit"])
 def test_fused_fold_eval_plain_matches_xla_round_body(case):
     q, n64, n_tab, spec, degree = ROUND_CASES[case]
     cfg, jcfg = FieldConfig(q, n64), JFieldConfig(q, n64)

@@ -117,17 +117,50 @@ def test_generic_wrappers_reject_bad_inputs(ctx):
 
 
 def test_generic_scope():
+    """The generic kernels take every combination their launch's parameter
+    block holds, at up to ZT_GEN_MAX_POINTS points: shared memory bounds
+    none (a block without room for its stage reads device memory)."""
     assert sk.generic_supported([tuple(range(8))], 9, 16)
     assert sk.generic_supported([(0,), (0, 1, 2, 3, 4)], 6, 8)
     assert sk.generic_supported([(0, 1)] * 32, 56, 8)
-    assert not sk.generic_supported([(0, 1)] * 32, 57, 8)  # shared memory
+    assert sk.generic_supported([(0, 1)] * 32, 57, 8)
+    assert sk.generic_supported([(0,)], 1024, 2) and not sk.generic_supported([(0,)], 1025, 2)
     assert not sk.generic_supported([(0,)], 2, 18)
     assert not sk.generic_supported([(0,) * 129, (1,) * 128], 2, 8)  # 257 factor slots
-    assert sk.generic_smem_bytes(1, 8, 8) == 8 * 8 * 8 + 8 * 8 * 64 * 4
     # the limits come from the header generic.cu includes
-    assert sk.GENERIC_LIMITS == {"ZT_GEN_BLOCK": 64, "ZT_GEN_MAX_TERMS": 32,
-                                 "ZT_GEN_MAX_ENTRIES": 256, "ZT_GEN_SUM_BYTES": 8,
-                                 "ZT_GEN_PROD_BYTES": 4, "ZT_SMEM_LIMIT": 232_448}
+    assert sk.GENERIC_LIMITS == {"ZT_GEN_BLOCK": 256, "ZT_GEN_PASS": 2, "ZT_GEN_PASS_WIDE": 1,
+                                 "ZT_GEN_MAX_TERMS": 32, "ZT_GEN_MAX_ENTRIES": 256,
+                                 "ZT_GEN_MAX_POINTS": 1024, "ZT_SMEM_LIMIT": 232_448}
+
+
+@pytest.mark.parametrize(
+    "k,n_pts,slots",
+    [(7, 8, 8),  # path B: k + 1 == n_pts, values at t = 0..6 and the leading coefficient
+     (5, 6, 6), (2, 6, 3),  # path A's terms: extended to 6 points
+     (5, 3, 3), (3, 3, 3),  # n_pts ≤ k: the points themselves
+     (1, 6, 2), (1, 2, 2), (1, 1, 1)],  # one factor: t = 0 and 1
+)
+def test_generic_term_slots(k, n_pts, slots):
+    assert sk.generic_term_slots(k, n_pts) == slots
+
+
+@pytest.mark.parametrize(
+    "terms,n_pts,n32,n_tab,fold,passes,layout",
+    [([(0, 1, 2, 3, 5), (4, 5)], 6, 8, 6, False, 5, (96, False)),  # path A: 3 + 2 passes, 2 sweeps
+     ([(0, 1, 2, 3, 5), (4, 5)], 6, 8, 6, True, 5, (96, True)),  # K10 stages its fold
+     ([tuple(range(7))], 8, 8, 7, True, 4, (128, True)),  # path B
+     ([tuple(range(7))], 8, 16, 7, True, 8, (256, True)),  # passes of one above 8 words
+     ([(0, 1)], 3, 8, 113, True, 2, (64, True)), ([(0, 1)], 3, 8, 114, True, 2, (64, False)),
+     ([tuple(range(8))] * 32, 9, 8, 8, False, 160, (160, False))],  # 32 sweeps of 5 warps
+)
+def test_generic_layout_takes_a_warp_per_pass(terms, n_pts, n32, n_tab, fold, passes, layout):
+    """A launch's block is a warp per pass of (up to) two evaluations, one
+    above 8 words, as many warps as the term with the most passes has (the
+    rest in later sweeps), and K10 stages its folded entries of 32 pairs of
+    every table when they fit."""
+    assert sk.generic_passes(terms, n_pts, n32) == passes
+    assert sk.generic_layout(n32, sk.generic_warps(terms, n_pts, n32), n_tab, fold) == layout
+    assert sk.generic_stage_bytes(8, 113) == 113 * 2 * 8 * 32 * 4 <= 232_448
 
 
 def test_support_predicates_follow_the_reference():
@@ -312,6 +345,53 @@ def test_generic_kernels_match_plain_on_cuda(cuda_device, q, n64, n_pairs):
         want_f, want_s = sk.fold_round_eval_plain(c, tabs, r, terms, pts)
         assert torch.equal(folded, want_f) and torch.equal(sums, want_s)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs", [197, 4096])
+def test_generic_kernels_in_sweeps_on_cuda(cuda_device, ctx, n_pairs):
+    """Combinations of many sweeps: 160 passes in sweeps of 5 warps (K10's
+    later sweeps read its folded entries back from its output), and K10 over
+    200 tables with no stage (its output read back after the block's
+    barrier)."""
+    tabs = _residues(ctx, (8, 4 * n_pairs), 42, cuda_device)
+    wide = [tuple((i + j) % 8 for i in range(8)) for j in range(32)]
+    r = fm.to_numpy(_residues(ctx, (1,), 43))[0]
+    assert sk.generic_passes(wide, 9, 8) == 160
+    assert torch.equal(sk.round_eval_generic(ctx, tabs, wide, 9),
+                       sk.round_eval_generic_plain(ctx, tabs, wide, 9))
+    folded, sums = sk.fold_round_eval(ctx, tabs, r, wide, 9)
+    want_f, want_s = sk.fold_round_eval_plain(ctx, tabs, r, wide, 9)
+    assert torch.equal(folded, want_f) and torch.equal(sums, want_s)
+    many = _residues(ctx, (200, 4 * n_pairs), 44, cuda_device)
+    terms = [(0, 199), (7,), (3, 150, 9)]
+    assert not sk.generic_layout(8, sk.generic_warps(terms, 4, 8), 200, True)[1]
+    folded, sums = sk.fold_round_eval(ctx, many, r, terms, 4)
+    want_f, want_s = sk.fold_round_eval_plain(ctx, many, r, terms, 4)
+    assert torch.equal(folded, want_f) and torch.equal(sums, want_s)
+
+
+@pytest.mark.cuda
+def test_generic_kernels_on_two_streams_on_cuda(cuda_device, ctx):
+    """round_eval_generic and fold_round_eval launches in flight on two
+    streams at once each count their own finished blocks."""
+    tabs = _residues(ctx, (7, 1 << 16), 45, cuda_device)
+    r = fm.to_numpy(_residues(ctx, (1,), 46))[0]
+    t7, t_a = [tuple(range(7))], [(0, 1, 2, 3, 5), (4, 5)]
+    want_e = sk.round_eval_generic_plain(ctx, tabs, t7, 8)
+    want_f = sk.fold_round_eval_plain(ctx, tabs, r, t_a, 6)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    got_e, got_f = [], []
+    for _ in range(16):
+        with torch.cuda.stream(s1):
+            got_e.append(sk.round_eval_generic(ctx, tabs, t7, 8))
+        with torch.cuda.stream(s2):
+            got_f.append(sk.fold_round_eval(ctx, tabs, r, t_a, 6))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want_e) for g in got_e)
+    assert all(torch.equal(f, want_f[0]) and torch.equal(s, want_f[1]) for f, s in got_f)
 
 
 @pytest.mark.cuda

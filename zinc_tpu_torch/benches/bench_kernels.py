@@ -189,6 +189,37 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
     ]
 
 
+def k10_rounds(ctx, device, log_n: int = 20, seed: int = 22) -> dict[str, list[dict]]:
+    """K10 at every round shape of paths A and B: the executor fuses the fold
+    into the round's evaluation while a table keeps more than HOST_TAIL
+    entries after the fold, so from 2^log_n entries down to 2^8 (13 launches
+    at 2^20).  Per path, dicts of the input entries ``b``, ``kernel`` (an
+    argument-free call), products and bytes, as :func:`cases`."""
+    import numpy as np
+
+    from zinc_tpu_torch.sumcheck import kernels as sk
+    from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
+
+    rng = np.random.default_rng(seed)
+    r = random_residues(rng, ctx, (1,), "cpu")[0].numpy().view(np.uint32)
+    eb = 4 * ctx.n32
+    paths = {"A": (6, [(0, 1, 2, 3, 5), (4, 5)], 6), "B": (7, [tuple(range(7))], 8)}
+    out = {}
+    for label, (n_tab, terms, n_pts) in paths.items():
+        full_tabs = random_residues(rng, ctx, (n_tab, 1 << log_n), device)
+        rows, b = [], 1 << log_n
+        while b // 2 > HOST_TAIL:
+            tabs = full_tabs[:, :b].contiguous()
+            full, lazy = round_products(b // 4, terms, n_pts)
+            rows.append({"b": b, "full": n_tab * b // 2 + full, "lazy": lazy,
+                         "bytes": n_tab * (b + b // 2) * eb,
+                         "kernel": lambda tabs=tabs, terms=terms, n_pts=n_pts:
+                             sk.fold_round_eval(ctx, tabs, r, terms, n_pts)})
+            b //= 2
+        out[label] = rows
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -211,6 +242,13 @@ def main(argv=None) -> None:
         bound, by = bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"])
         print(json.dumps({"name": c["name"], "shape": c["shape"], "ms": ms, "bound_ms": bound,
                           "bound_by": by, "share_of_bound": bound / ms}), flush=True)
+    for path, rows in k10_rounds(ctx, "cuda").items():
+        times = [device_ms(row["kernel"]) for row in rows]
+        bounds = [bound_ms(ctx.n32, row["bytes"], row["full"], row["lazy"], info["max_sm_mhz"])[0]
+                  for row in rows]
+        print(json.dumps({"name": "fold_round_eval", "shape": f"path {path}, {len(rows)} rounds",
+                          "entries": [row["b"] for row in rows], "ms": times, "sum_ms": sum(times),
+                          "bound_ms": bounds, "sum_bound_ms": sum(bounds)}), flush=True)
 
 
 if __name__ == "__main__":

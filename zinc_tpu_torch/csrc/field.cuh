@@ -257,11 +257,33 @@ __device__ __forceinline__ void mul_wide(uint32_t (&p)[2 * N], const uint32_t (&
     }
 }
 
+// r = x mod q for x < 2^kbits·q held in N+1 words: subtracting q·2^i where
+// it fits, for i from kbits−1 down to 0, leaves x below q.
+template <int N>
+__device__ __forceinline__ void reduce_below(uint32_t (&r)[N], uint32_t (&x)[N + 1], int kbits,
+                                             const FieldParams& f) {
+    for (int i = kbits - 1; i >= 0; --i) {
+        uint32_t s[N + 1], d[N + 1];
+        s[0] = f.q[0] << i;
+#pragma unroll
+        for (int j = 1; j < N; ++j) s[j] = __funnelshift_l(f.q[j - 1], f.q[j], i);
+        s[N] = __funnelshift_l(f.q[N - 1], 0u, i);
+        d[0] = sub_cc(x[0], s[0]);
+#pragma unroll
+        for (int j = 1; j <= N; ++j) d[j] = subc_cc(x[j], s[j]);
+        const bool below = (int32_t)subc(0u, 0u) < 0;
+#pragma unroll
+        for (int j = 0; j <= N; ++j) x[j] = below ? x[j] : d[j];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) r[j] = x[j];
+}
+
 // r = w·R⁻¹ mod q for a sum w of 2N-word products of residues, held in 2N+1
 // words: w < k·q·R for k terms, and kbits is the bit length of k (≥ 1).
 // Montgomery's reduction, one word at a time, leaves x = (w + m·q)/R below
-// (k+1)·q ≤ 2^kbits·q in N+1 words; subtracting q·2^i where it fits, for i
-// from kbits−1 down to 0, leaves x below q.  w is overwritten.
+// (k+1)·q ≤ 2^kbits·q in N+1 words, which reduce_below takes below q.  w is
+// overwritten.
 template <int N>
 __device__ __forceinline__ void redc_wide(uint32_t (&r)[N], uint32_t (&w)[2 * N + 1], int kbits,
                                           const FieldParams& f) {
@@ -284,21 +306,7 @@ __device__ __forceinline__ void redc_wide(uint32_t (&r)[N], uint32_t (&w)[2 * N 
     uint32_t x[N + 1];
 #pragma unroll
     for (int j = 0; j <= N; ++j) x[j] = w[N + j];
-    for (int i = kbits - 1; i >= 0; --i) {
-        uint32_t s[N + 1], d[N + 1];
-        s[0] = f.q[0] << i;
-#pragma unroll
-        for (int j = 1; j < N; ++j) s[j] = __funnelshift_l(f.q[j - 1], f.q[j], i);
-        s[N] = __funnelshift_l(f.q[N - 1], 0u, i);
-        d[0] = sub_cc(x[0], s[0]);
-#pragma unroll
-        for (int j = 1; j <= N; ++j) d[j] = subc_cc(x[j], s[j]);
-        const bool below = (int32_t)subc(0u, 0u) < 0;
-#pragma unroll
-        for (int j = 0; j <= N; ++j) x[j] = below ? x[j] : d[j];
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) r[j] = x[j];
+    reduce_below<N>(r, x, kbits, f);
 }
 
 // ---------------------------------------------------------------------------

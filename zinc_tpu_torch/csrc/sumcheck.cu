@@ -34,8 +34,8 @@
 //   k in t, so k + 1 sums fix it: its values at t = 0 and 1 are products of
 //   the entries as loaded, its leading coefficient the product of the steps
 //   v1 − v0, and only t = 2..k−1 need stepping.  The last block extends
-//   each term to n_pts points by finite differences (extend_points, exact
-//   mod q).
+//   each term to n_pts points by finite differences (round_sums.cuh:
+//   extend_points, exact mod q).
 // * Registers: a thread holds one term's factors (two entries) at a time and
 //   no accumulator: its running sums live in shared memory, 2N + 1 words a
 //   slot, [slot][word][thread] (conflict-free), so two 256-thread blocks fit
@@ -50,6 +50,7 @@
 
 #include "field.cuh"
 #include "round_eval.cuh"
+#include "round_sums.cuh"
 
 template <int N>
 __global__ void __launch_bounds__(256) fold_kernel(uint32_t* __restrict__ out,
@@ -83,10 +84,6 @@ struct EvalComb {
     int slot[ZT_EVAL_MAX_TERMS];
     int fac[ZT_EVAL_MAX_TERMS][ZT_EVAL_MAX_FACTORS];
 };
-
-// Words of a wide slot: a sum of 2N-word products and its carry word.
-template <int N>
-__host__ __device__ constexpr int wide_words() { return 2 * N + 1; }
 
 // acc[slot][word][thread] += x, a 2N-word product, in this thread's column.
 template <int N>
@@ -157,56 +154,6 @@ __device__ __noinline__ void block_sum(uint32_t* acc, int n_slots, const FieldPa
         }
     }
     __syncthreads();
-}
-
-// y[0..h) are the values at t = 0..h−1 of a polynomial of degree D (N-word
-// residues, one after the other), and `lead` its leading coefficient when
-// h = D (nullptr when h = D + 1); writes its values at t = h..n_pts−1 after
-// them.  Forward differences at 0 (the D-th is D!·lead), the top one held
-// constant, then running sums back up; exact mod q.
-template <int N>
-__device__ __noinline__ void extend_points(uint32_t* y, int h, const uint32_t* lead, int n_pts,
-                                           const FieldParams& f) {
-    const int D = lead ? h : h - 1;
-    uint32_t x[N], z[N];
-    for (int k = 1; k < h; ++k) {
-        for (int i = h - 1; i >= k; --i) {
-#pragma unroll
-            for (int w = 0; w < N; ++w) {
-                x[w] = y[i * N + w];
-                z[w] = y[(i - 1) * N + w];
-            }
-            sub_mod<N>(x, x, z, f);
-#pragma unroll
-            for (int w = 0; w < N; ++w) y[i * N + w] = x[w];
-        }
-    }
-    if (lead) {  // Δ^D = D!·lead
-#pragma unroll
-        for (int w = 0; w < N; ++w) x[w] = lead[w];
-        for (int m = 2; m <= D; ++m) {
-#pragma unroll
-            for (int w = 0; w < N; ++w) z[w] = x[w];
-            for (int i = 1; i < m; ++i) add_mod<N>(x, x, z, f);
-        }
-#pragma unroll
-        for (int w = 0; w < N; ++w) y[D * N + w] = x[w];
-    }
-    for (int i = D + 1; i < n_pts; ++i)
-#pragma unroll
-        for (int w = 0; w < N; ++w) y[i * N + w] = y[D * N + w];
-    for (int k = D - 1; k >= 0; --k) {
-        for (int t = k + 1; t < n_pts; ++t) {
-#pragma unroll
-            for (int w = 0; w < N; ++w) {
-                x[w] = y[t * N + w];
-                z[w] = y[(t - 1) * N + w];
-            }
-            add_mod<N>(x, x, z, f);
-#pragma unroll
-            for (int w = 0; w < N; ++w) y[t * N + w] = x[w];
-        }
-    }
 }
 
 // wide = Π_k x[k] over the term's nf factors: Montgomery products but for

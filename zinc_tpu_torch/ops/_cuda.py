@@ -34,7 +34,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu")
-HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh")
+HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh", "round_sums.cuh")
 # the word counts the kernels take: n32 = 2·n64 for n64 = 1..8 (64 to 512 bits)
 KERNEL_WORDS = tuple(range(2, 17, 2))
 
@@ -139,12 +139,13 @@ def lib(n32: int):
             l.zt_eval_max_grid.argtypes = [_I, _I, _I, _I, _P]
             l.zt_round_eval.argtypes = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _P, _U32, _P]
-            l.zt_gen_blocks.argtypes = [_I64]
-            l.zt_round_eval_generic.argtypes = [_P, _P, _I64, _I64, _P, _P, _I, _I, _I, _P, _U32, _P]
-            l.zt_fold_round_eval.argtypes = [_P, _P, _P, _I, _I64, _P, _P, _P, _I, _I, _I, _P,
-                                             _U32, _P]
+            l.zt_gen_max_grid.argtypes = [_I, _I, _I64, _I, _P]
+            l.zt_round_eval_generic.argtypes = [_P, _P, _P, _P, _I, _I64, _P, _P, _I, _I, _I, _I, _I,
+                                                _I, _P, _U32, _P]
+            l.zt_fold_round_eval.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _P, _P, _P, _I, _I, _I,
+                                             _I, _I, _I, _P, _U32, _P]
             for fn in (l.zt_mont_mul, l.zt_fold, l.zt_eval_max_grid, l.zt_round_eval,
-                       l.zt_gen_blocks, l.zt_round_eval_generic, l.zt_fold_round_eval):
+                       l.zt_gen_max_grid, l.zt_round_eval_generic, l.zt_fold_round_eval):
                 fn.restype = _I
             _libs[n32] = l
     return _libs[n32]

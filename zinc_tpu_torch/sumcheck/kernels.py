@@ -19,14 +19,12 @@ H100 and what the design does about it.  Tables are (n_tables, B, n32)
 int32 tensors in natural order: a round pairs entries (2p, 2p+1).  A fold
 writes a fresh (n_tables, B/2, n32) output.
 
-K3 and K4 return, per term and point t, the round sums reduced mod q:
-(n_terms, n_pts, n32) int32 canonical residues, from one launch per round
-for the whole combination.  The generic kernels return the exact sums of
-each term's products over all pairs as int64 word columns (lazy: a word
-column may exceed 2^32).  Either form is linear in the products, so the
-term's coefficient, the reduction mod q and, for K4, the Gruen factor
-pref·c_j(t) are applied afterwards (``sumcheck/executor.py:round_values``),
-on the host, where the Fiat-Shamir transcript needs the round values anyway.
+Every round kernel returns, per term and point t, the round sums reduced
+mod q: (n_terms, n_pts, n32) int32 canonical residues, from one launch per
+round for the whole combination.  They are linear in the products, so the
+term's coefficient and, for K4, the Gruen factor pref·c_j(t) are applied
+afterwards (``sumcheck/executor.py:round_values``), on the host, where the
+Fiat-Shamir transcript needs the round values anyway.
 
 Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -112,7 +110,7 @@ def _check_tables(ctx: DeviceField, tables: torch.Tensor) -> None:
     if tables.shape[1] % 2:
         raise ValueError(f"tables: odd length {tables.shape[1]}")
     if tables.shape[1] // 2 >= 1 << 31:
-        raise ValueError("tables: the int64 round sums are exact below 2^31 pairs")
+        raise ValueError("tables: the kernels' running sums are exact below 2^31 pairs")
 
 
 def _check_terms(terms, n_tables: int, max_len: int, n_pts: int) -> None:
@@ -123,26 +121,72 @@ def _check_terms(terms, n_tables: int, max_len: int, n_pts: int) -> None:
         raise ValueError(f"n_pts {n_pts} outside 1..{MAX_POINTS}")
 
 
-def generic_smem_bytes(n_terms: int, n_pts: int, n32: int) -> int:
-    """Shared memory of one generic block (``generic.cu:gen_smem_bytes``)."""
+def generic_term_slots(k: int, n_pts: int) -> int:
+    """Running sums of a term of k factors (``generic.cu:gen_term_slots``):
+    a term of k ≥ 2 factors is a polynomial of degree k in t, fixed by its
+    values at t = 0..k−1 and its leading coefficient, from which the points
+    follow; where n_pts ≤ k its n_pts points are evaluated directly.  A term
+    of one factor: its values at t = 0 and 1."""
+    return min(k + 1 if k >= 2 else 2, n_pts)
+
+
+def _has_lead(k: int, n_pts: int) -> bool:
+    return k >= 2 and n_pts > k
+
+
+def generic_slots(terms, n_pts: int) -> int:
+    return sum(generic_term_slots(len(t), n_pts) for t in terms)
+
+
+def _pass_len(n32: int) -> int:
     lim = GENERIC_LIMITS
-    return (n_terms * n_pts * n32 * lim["ZT_GEN_SUM_BYTES"]
-            + n_pts * n32 * lim["ZT_GEN_BLOCK"] * lim["ZT_GEN_PROD_BYTES"])
+    return lim["ZT_GEN_PASS"] if n32 <= 8 else lim["ZT_GEN_PASS_WIDE"]
+
+
+def generic_passes(terms, n_pts: int, n32: int) -> int:
+    """Passes of a generic launch (``generic.cu:make_comb``): each term's
+    evaluations in runs of ZT_GEN_PASS (ZT_GEN_PASS_WIDE above 8 words), one
+    warp each."""
+    return sum(-(-generic_term_slots(len(t), n_pts) // _pass_len(n32)) for t in terms)
+
+
+def generic_warps(terms, n_pts: int, n32: int) -> int:
+    """Warps of a generic block, the passes it runs at once: as many as the
+    term with the most passes has (up to ZT_GEN_BLOCK / 32), so that a
+    block's warps carry passes of equal cost, those of one term, and the
+    passes of lighter terms follow in later sweeps over the pairs."""
+    most = max(-(-generic_term_slots(len(t), n_pts) // _pass_len(n32)) for t in terms)
+    return min(most, GENERIC_LIMITS["ZT_GEN_BLOCK"] // 32)
+
+
+def generic_stage_bytes(n32: int, n_tab: int) -> int:
+    """Shared memory of K10's stage: both folded entries of 32 pairs of every
+    table (``generic.cu:gen_smem``)."""
+    return n_tab * 2 * n32 * 32 * 4
+
+
+def generic_layout(n32: int, warps: int, n_tab: int, fold: bool) -> tuple[int, bool]:
+    """(block, staged) of a generic launch: ``warps`` (:func:`generic_warps`)
+    warps, a pass each (the other passes take further sweeps over the
+    pairs), and for K10 a stage when every table's 32 folded pairs fit the
+    shared memory."""
+    return (32 * warps,
+            fold and generic_stage_bytes(n32, n_tab) <= GENERIC_LIMITS["ZT_SMEM_LIMIT"])
 
 
 def generic_supported(idx_terms, n_pts: int, n32: int) -> bool:
     """What the generic kernels take: any terms of ≥ 1 factor over ≤ 512-bit
-    fields, as long as the combination fits the launch's parameter block and
-    a block's sums and partial products fit its shared memory (at 256 bits,
-    32 terms at 56 points)."""
+    fields, as many as the launch's parameter block holds, at up to
+    ZT_GEN_MAX_POINTS points.  Shared memory bounds no combination: a block
+    without room for its stage reads the tables in device memory
+    (:func:`generic_layout`)."""
     lim = GENERIC_LIMITS
     return (
         n32 <= MAX_WORDS
         and 1 <= len(idx_terms) <= lim["ZT_GEN_MAX_TERMS"]
         and all(len(t) >= 1 for t in idx_terms)
         and sum(map(len, idx_terms)) <= lim["ZT_GEN_MAX_ENTRIES"]
-        and n_pts >= 1
-        and generic_smem_bytes(len(idx_terms), n_pts, n32) <= lim["ZT_SMEM_LIMIT"]
+        and 1 <= n_pts <= lim["ZT_GEN_MAX_POINTS"]
     )
 
 
@@ -315,10 +359,62 @@ def round_eval_gruen(
 # ---------------------------------------------------------------------------
 
 
+def _term_evals_plain(ctx, tables, term, n_pts) -> torch.Tensor:
+    """(h, n32) int64 exact word sums over the pairs of a term's evaluations,
+    as the generic kernels form them: its values at t = 0..h−1 or, where it
+    has one, at t = 0..h−2 and last its leading coefficient
+    Π_k (v1_k − v0_k)."""
+    h = generic_term_slots(len(term), n_pts)
+    v0 = [tables[i, 0::2] for i in term]
+    v1 = [tables[i, 1::2] for i in term]
+    steps = [fm.mont_sub(ctx, b, a) for a, b in zip(v0, v1)]
+    xs, out = v0, []
+    for e in range(h):
+        factors = steps if _has_lead(len(term), n_pts) and e == h - 1 else xs
+        prod = factors[0]
+        for x in factors[1:]:
+            prod = fm.mont_mul(ctx, prod, x)
+        out.append(fm.widen(prod).sum(dim=0))
+        xs = v1 if e == 0 else [fm.mont_add(ctx, x, s) for x, s in zip(xs, steps)]
+    return torch.stack(out)
+
+
+def _extend_plain(ctx, vals: torch.Tensor, lead, n_pts: int) -> torch.Tensor:
+    """(n_pts, n32) residues: the values at t = 0..n_pts−1 of the polynomial
+    whose values at t = 0..h−1 are ``vals`` (h, n32), of degree h with
+    leading coefficient ``lead``, or of degree h − 1 when ``lead`` is None
+    (``round_sums.cuh:extend_points``): its forward differences at 0, the
+    top one (D!·lead) held constant, summed back up."""
+    if lead is None and len(vals) >= n_pts:
+        return vals[:n_pts]
+    row, diffs = list(vals), []
+    while row:
+        diffs.append(row[0])
+        row = [fm.mont_sub(ctx, b, a) for a, b in zip(row, row[1:])]
+    if lead is not None:
+        top = lead
+        for m in range(2, len(vals) + 1):  # D!·lead
+            base = top
+            for _ in range(m - 1):
+                top = fm.mont_add(ctx, top, base)
+        diffs.append(top)
+    out = []
+    for _ in range(n_pts):
+        out.append(diffs[0])
+        diffs = [fm.mont_add(ctx, a, b) for a, b in zip(diffs, diffs[1:])] + diffs[-1:]
+    return torch.stack(out)
+
+
 def round_eval_generic_plain(ctx, tables, terms, n_pts) -> torch.Tensor:
-    """The generic kernels' plain sums: (n_terms, n_pts, n32) int64 exact
-    word columns."""
-    return torch.stack([_term_sums_plain(ctx, tables, t, n_pts) for t in terms])
+    """The generic kernels' plain version: (n_terms, n_pts, n32) residues.
+    Each term's evaluations are summed over the pairs and reduced mod q,
+    then extended to every point, as the kernels do."""
+    out = []
+    for t in terms:
+        ev = _reduced(ctx, tables, _term_evals_plain(ctx, tables, t, n_pts))
+        lead = _has_lead(len(t), n_pts)
+        out.append(_extend_plain(ctx, ev[:-1] if lead else ev, ev[-1] if lead else None, n_pts))
+    return torch.stack(out)
 
 
 def fold_round_eval_plain(ctx, tables, r, terms, n_pts):
@@ -326,41 +422,75 @@ def fold_round_eval_plain(ctx, tables, r, terms, n_pts):
     return folded, round_eval_generic_plain(ctx, folded, terms, n_pts)
 
 
-def _comb_arrays(terms):
+@functools.lru_cache(maxsize=64)
+def _comb_arrays(terms: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """(start, factor indices) of a combination: term j is
+    fac[start[j] .. start[j+1])."""
     start = np.cumsum([0] + [len(t) for t in terms]).astype(np.int32)
     return start, np.asarray([i for t in terms for i in t], dtype=np.int32)
 
 
-def _generic_launch(name, ctx, tables, terms, n_pts, pairs, args_mid):
-    """Launch ``zt_<name>`` on ``pairs`` eval pairs; returns the summed
-    (n_terms, n_pts, n32) int64 sums."""
-    _cuda.require_kernel_words(ctx.n32)
+# (device, n32, warps, n_tab, fold) -> (block, staged, max grid)
+_GEN_PLAN: dict[tuple, tuple[int, bool, int]] = {}
+
+
+def generic_plan(lib, dev, n32: int, warps: int, n_tab: int, fold: bool) -> tuple[int, bool, int]:
+    """(block, staged, max grid) of a generic launch, the one place this is
+    decided (the launch takes it): :func:`generic_layout`, and the most
+    blocks resident on the card at once (``zt_gen_max_grid``)."""
+    key = (dev, n32, warps, n_tab, fold)
+    if key not in _GEN_PLAN:
+        block, staged = generic_layout(n32, warps, n_tab, fold)
+        max_grid = ctypes.c_int(0)
+        smem = generic_stage_bytes(n32, n_tab) if staged else 0
+        _cuda.check(lib.zt_gen_max_grid(int(fold), block, smem, n32, ctypes.addressof(max_grid)),
+                    "zt_gen_max_grid")
+        _GEN_PLAN[key] = (block, staged, max_grid.value)
+    return _GEN_PLAN[key]
+
+
+def _generic_launch(name, ctx, tables, terms, n_pts, folded=None, r=None) -> torch.Tensor:
+    """One launch of ``zt_<name>`` for the whole combination: one buffer
+    holds the output (its first rows), the grid's slot sums, the 64-bit
+    column sums the blocks add their slots into and, in its last word, the
+    launch's own count of finished blocks (the last two zeroed on the
+    launch's stream).  K10 also fills ``folded``."""
     n = ctx.n32
+    _cuda.require_kernel_words(n)
     lib = _cuda.lib(n)
-    partial = torch.empty((lib.zt_gen_blocks(pairs), len(terms) * n_pts * n), dtype=torch.int64,
-                          device=tables.device)
-    start, fac = _comb_arrays(terms)
-    q = _cuda.modulus_words(ctx)
-    rc = getattr(lib, "zt_" + name)(
-        partial.data_ptr(), *args_mid, start.ctypes.data, fac.ctypes.data, len(terms), n_pts, n,
-        q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
-    )
+    n_tab, b = tables.shape[0], tables.shape[1]
+    fold = folded is not None
+    pairs = b // 4 if fold else b // 2
+    block, staged, max_grid = generic_plan(lib, tables.device, n, generic_warps(terms, n_pts, n),
+                                           n_tab, fold)
+    grid = max(1, min(-(-pairs // 32), max_grid))
+    n_out, n_sums = len(terms) * n_pts * n, generic_slots(terms, n_pts) * n
+    buf = torch.empty(n_out + 3 * n_sums + 1, dtype=torch.int32, device=tables.device)
+    ptr = buf.data_ptr()
+    bufs = (ptr, ptr + 4 * n_out, ptr + 4 * (n_out + n_sums))
+    start, fac = _comb_arrays(tuple(map(tuple, terms)))
+    comb = (start.ctypes.data, fac.ctypes.data, len(terms), n_pts, block, grid, int(staged))
+    field = (n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32, _cuda.stream_ptr())
+    if fold:
+        rw = _cuda.host_words(r)
+        rc = lib.zt_fold_round_eval(*bufs, folded.data_ptr(), tables.data_ptr(), n_tab, b,
+                                    rw.ctypes.data, *comb, *field)
+    else:
+        rc = lib.zt_round_eval_generic(*bufs, tables.data_ptr(), n_tab, b, *comb, *field)
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
-    return partial.sum(dim=0).reshape(len(terms), n_pts, n)
+    return buf[:n_out].view(len(terms), n_pts, n)
 
 
 def round_eval_generic(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int) -> torch.Tensor:
-    """Round sums of any combination: (n_terms, n_pts, n32) int64 word
-    columns of Σ_p Π_{k∈term} M_k(t, p), t = 0..n_pts−1 (the function of
+    """Round sums of any combination: (n_terms, n_pts, n32) residues of
+    Σ_p Π_{k∈term} M_k(t, p) mod q, t = 0..n_pts−1 (the function of
     :func:`round_eval`, for terms of any length, in one launch)."""
     _check_tables(ctx, tables)
     _check_generic(ctx, tables, terms, n_pts)
     if not tables.is_cuda:
         return round_eval_generic_plain(ctx, tables, terms, n_pts)
-    b = tables.shape[1]
-    return _generic_launch("round_eval_generic", ctx, tables, terms, n_pts, b // 2,
-                           (tables.data_ptr(), b, b // 2))
+    return _generic_launch("round_eval_generic", ctx, tables, terms, n_pts)
 
 
 def fold_round_eval(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray, terms, n_pts: int):
@@ -374,17 +504,13 @@ def fold_round_eval(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray, terms
     if not tables.is_cuda:
         return fold_round_eval_plain(ctx, tables, r, terms, n_pts)
     n_tab, b, n = tables.shape
-    out = torch.empty((n_tab, b // 2, n), dtype=torch.int32, device=tables.device)
-    rw = _cuda.host_words(r)
-    sums = _generic_launch("fold_round_eval", ctx, tables, terms, n_pts, b // 4,
-                           (out.data_ptr(), tables.data_ptr(), n_tab, b, rw.ctypes.data))
-    return out, sums
+    folded = torch.empty((n_tab, b // 2, n), dtype=torch.int32, device=tables.device)
+    return folded, _generic_launch("fold_round_eval", ctx, tables, terms, n_pts, folded, r)
 
 
 def sums_to_ints(ctx: DeviceField, sums: torch.Tensor) -> np.ndarray:
-    """Round sums (..., n32) → object array of the sums mod q: int32
-    residues (K3/K4) or lazy int64 word sums (the generic kernels)."""
-    arr = fm.to_numpy(sums) if sums.dtype == torch.int32 else sums.detach().cpu().numpy()
+    """Round sums (..., n32) int32 residues → object array of ints."""
+    arr = fm.to_numpy(sums)
     flat = arr.reshape(-1, arr.shape[-1])
-    vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % ctx.modulus for row in flat]
+    vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in flat]
     return np.array(vals, dtype=object).reshape(arr.shape[:-1])
