@@ -37,14 +37,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    tests/test_torch_generic.py), and at 2^20 (seed 5) one prove and one
    verify, with walls, launches and peak memory; the V_s tamper is rejected;
 6. path B, zinc_tpu_torch.benches.bench_sumcheck at 2^20 (7 factors,
-   degree 7): prove and verify times, accepted by the host verifier.
+   degree 7): prove and verify times, accepted by the host verifier;
+7. the sharded prove (zinc_tpu_torch.parallel) on the card: (a) the 2^20
+   R1CS on Mesh([cuda:0] * 4), byte-identical to phase 3's proof, verified,
+   the tamper rejected, with walls, launches, peak memory, 12 of the 20
+   rounds of each sumcheck on the shards and the commit in 4 row blocks;
+   (b) path A at 2^10 on four shards, hashed to PATH_A_SHA256_2P10; (c) a
+   2 x 2 mesh of cuda:0 at 2^20 whose roots and proof equal (a)'s; (d) with
+   two cards or more, (a) again on local_mesh() over the real cards.
 
 The native runtime runs at its default thread count.  The line before the
 last is a JSON object with one entry per kernel: its launches summed over
-the three 2^20 runs (phase 3, path A at 2^20, path B's timed prove), each
-counted from 0, and the numbers of its first phase-1 case; the 2^10 runs'
-launches are logged on their own lines.  The last line is the JSON result
-object.
+the four 2^20 runs (phase 3, path A at 2^20, path B's timed prove, phase
+7's (a)), each counted from 0, and the numbers of its first phase-1 case;
+the 2^10 runs' launches are logged on their own lines.  The last line is
+the JSON result object.
 """
 
 from __future__ import annotations
@@ -329,6 +336,9 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
     from zinc_tpu_torch.fields.montgomery import device_field
 
     results = {}
+    floor_ms = bk.launch_floor_ms()
+    log(f"[launch] an empty kernel (torch.cuda._sleep(0)) takes {floor_ms:.4f} ms device-only: "
+        f"the launch floor")
     for cfg, log_n in ((cfg8, 20), (cfg6, 20)):
         ctx = device_field(cfg)
         for c in bk.cases(ctx, "cuda", log_n):
@@ -344,6 +354,8 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
             if ctx.n32 == 8 and c["name"] in GENERIC_ROWS and info["per_product"]:
                 floor = (f" issue-slot floor "
                          f"{issue_floor_ms(c['full'], c['lazy'], info['per_product'], info['max_sm_mhz']):.4f} ms")
+            if c["launch_bound"]:
+                floor += f" bound with the launch floor {max(bound, floor_ms):.4f} ms"
             log(f"[kernel] {c['name']} ({c['shape']}, {ctx.n32} words): shapes "
                 f"{[tuple(g.shape) for g in got]} max_abs_err {err} device-only {ms:.4f} ms "
                 f"single {single_ms:.4f} ms plain {plain_ms:.4f} ms bound {bound:.4f} ms ({by}; "
@@ -418,16 +430,18 @@ def compare_generic(ctx, log_n: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def prove_verify(ccs, statement, wit, device: str, n64: int = 4):
+def prove_verify(ccs, statement, wit, device: str, n64: int = 4, mesh=None):
+    """One prove (on ``device``, or on ``mesh``) and one verify (on
+    ``device``, or on the mesh's first device)."""
     import zinc_tpu_torch as zt
 
     ztypes = zt.ZipTypes(1)
     t = zt.KeccakTranscript()
     cfg = zt.draw_random_field(statement.public_input, t, ztypes.n_words, n64)
     t0 = time.perf_counter()
-    proof = zt.ZincProver(ztypes, device=device).prove(statement, wit, t, ccs, cfg)
+    proof = zt.ZincProver(ztypes, device=device, mesh=mesh).prove(statement, wit, t, ccs, cfg)
     prove_s = time.perf_counter() - t0
-    verifier = zt.ZincVerifier(ztypes, device=device)
+    verifier = zt.ZincVerifier(ztypes, device=device if mesh is None else mesh.first)
     t0 = time.perf_counter()
     verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
     verify_s = time.perf_counter() - t0
@@ -494,10 +508,11 @@ def check_launches(launches: dict, must: tuple, must_not: tuple, what: str) -> N
                              f"{stray}: {launches}")
 
 
-def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple) -> dict:
-    """One prove and one verify on the card with the launch counts of that
-    run, the stage walls, the proof size and the peak device memory; then
-    the V_s[0] + 1 tamper, which must be rejected."""
+def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple, mesh=None) -> dict:
+    """One prove (on the card, or on ``mesh``) and one verify on the card
+    with the launch counts of that run, the stage walls, the proof size and
+    the peak device memory; then the V_s[0] + 1 tamper, which must be
+    rejected.  Returns the launches, the proof's sha256 and its roots."""
     import torch
 
     import zinc_tpu_torch as zt
@@ -508,10 +523,12 @@ def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple) -> dic
     torch.cuda.reset_peak_memory_stats()
     STAGES.clear()
     _cuda.reset_launches()
-    proof, cfg, (_, verifier), prove_s, verify_s = prove_verify(ccs, statement, wit, "cuda")
+    proof, cfg, (_, verifier), prove_s, verify_s = prove_verify(ccs, statement, wit, "cuda",
+                                                                mesh=mesh)
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    size = len(zt.serialize_proof(proof, cfg))
+    blob = zt.serialize_proof(proof, cfg)
+    size = len(blob)
     walls = {k: round(v, 4) for k, v in STAGES.items()}
     log(f"[{label}] prove {prove_s:.3f} s, verify {verify_s:.3f} s (accepted), "
         f"proof {size} bytes, peak device memory {peak / 2**30:.3f} GiB")
@@ -523,8 +540,10 @@ def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple) -> dic
         proof.spartan_proof.V_s[0] = proof.spartan_proof.V_s[0] + cfg.one()
         verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
 
+    digest = hashlib.sha256(blob).hexdigest()
+    log(f"[{label}] proof sha256 {digest}")
     expect_reject(bad_vs, f"{label}: V_s[0] + 1")
-    return launches
+    return {"launches": launches, "sha256": digest, "roots": proof.zip_proof.z_comm.roots}
 
 
 def phase3(log_n: int) -> dict:
@@ -548,7 +567,7 @@ def phase5(log_n: int) -> dict:
         raise AssertionError(f"path A 2^10 proof hashes to {digest}, not {PATH_A_SHA256_2P10}")
     check_launches(launches, PATH_A_KERNELS, ("round_eval_gruen",), "path A 2^10")
     return prove_verify_large(f"path A 2^{log_n}", degree4_fixture(1 << log_n, 5), PATH_A_KERNELS,
-                              ("round_eval_gruen",))
+                              ("round_eval_gruen",))["launches"]
 
 
 def phase6(log_n: int) -> dict:
@@ -565,6 +584,90 @@ def phase6(log_n: int) -> dict:
     check_launches(launches, PATH_B_KERNELS, ("mont_mul", "round_eval", "round_eval_gruen"),
                    "path B")
     return launches
+
+
+def _prove_on_mesh(label: str, fixture, mesh) -> dict:
+    """One prove on ``mesh`` (no verify): its wall, sha256 and roots."""
+    import zinc_tpu_torch as zt
+
+    ccs, statement, wit = fixture
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(statement.public_input, t, 1, 4)
+    t0 = time.perf_counter()
+    proof = zt.ZincProver(zt.ZipTypes(1), mesh=mesh).prove(statement, wit, t, ccs, cfg)
+    wall = time.perf_counter() - t0
+    digest = hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest()
+    log(f"[{label}] prove {wall:.3f} s, proof sha256 {digest}, {mesh.stats}")
+    return {"sha256": digest, "roots": proof.zip_proof.z_comm.roots}
+
+
+def check_sharded(label: str, mesh, log_n: int, commit: str) -> None:
+    """Both sumchecks ran their rounds down to HOST_TAIL entries a shard on
+    the shards, and the commit ran in the layout ``commit``."""
+    from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
+
+    d = mesh.size
+    want = 0 if (1 << log_n) % d else log_n - (d.bit_length() - 1) - (HOST_TAIL.bit_length() - 1)
+    rounds = mesh.stats.get("sharded_rounds")
+    log(f"[{label}] sharded rounds per sumcheck {rounds} of {log_n} (want {want} each); "
+        f"commit {mesh.stats.get('commit')}")
+    if rounds != [want, want] or mesh.stats.get("commit") != [commit]:
+        raise AssertionError(f"{label}: the mesh was not used as expected: {mesh.stats}")
+
+
+def phase7(log_n: int, single: dict, card="cuda:0") -> dict:
+    """The sharded prove on the card: (a) the 2^log_n R1CS (seed 5) on four
+    shards of cuda:0, its proof byte-identical to phase 3's, verified, the
+    tamper rejected, 12 of 20 rounds of each sumcheck on the shards and the
+    commit in 4 row blocks; (b) path A at 2^10 on four shards, hashed to
+    PATH_A_SHA256_2P10; (c) a 2 x 2 mesh of cuda:0 at 2^log_n, roots and
+    proof equal (a)'s; (d) where there are two cards or more, (a) on
+    ``local_mesh()`` over the real cards.  Returns (a)'s launches.  ``card``
+    is the device the shards repeat (a CPU rehearsal passes "cpu")."""
+    import torch
+
+    import zinc_tpu_torch as zt
+    from zinc_tpu_torch.parallel import Mesh, local_mesh
+
+    card = torch.device(card)
+    ccs, statement, wit, _, _ = setup(1 << log_n, 5)
+    mesh = Mesh([card] * 4)
+    label = f"mesh 4 x {card} 2^{log_n}"
+    a = prove_verify_large(label, (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS, mesh=mesh)
+    check_sharded(label, mesh, log_n, "4 row blocks")
+    if a["sha256"] != single["sha256"]:
+        raise AssertionError(f"{label}: proof differs from the single-device proof")
+    log(f"[{label}] proof identical to the single-device proof of phase 3")
+
+    mesh_a = Mesh([card] * 4)
+    proof, cfg, _, _, _ = prove_verify(*degree4_fixture(1 << 10, 1234), "cuda", mesh=mesh_a)
+    digest = hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest()
+    log(f"[mesh 4 x {card} path A 2^10] proof sha256 {digest}, verifier accepted")
+    if digest != PATH_A_SHA256_2P10:
+        raise AssertionError(f"path A 2^10 on 4 shards hashes to {digest}, not {PATH_A_SHA256_2P10}")
+    check_sharded(f"mesh 4 x {card} path A 2^10", mesh_a, 10, "4 row blocks")
+
+    mesh_2d = Mesh([[card, card], [card, card]], ("r", "c"))
+    c = _prove_on_mesh(f"mesh 2 x 2 x {card} 2^{log_n}", (ccs, statement, wit), mesh_2d)
+    check_sharded(f"mesh 2 x 2 x {card} 2^{log_n}", mesh_2d, log_n, "2 row blocks x 2 column blocks")
+    if c["sha256"] != a["sha256"] or c["roots"] != a["roots"]:
+        raise AssertionError("the 2 x 2 mesh's roots or proof differ from the 1-D mesh's")
+    log(f"[mesh 2 x 2 x {card} 2^{log_n}] roots and proof identical to the 4-shard mesh's")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = local_mesh()
+        label = f"mesh of {n_cards} cards 2^{log_n}"
+        d = prove_verify_large(label, (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS,
+                               mesh=cards)
+        even = n_cards & (n_cards - 1) == 0  # splits the rows and the hypercube
+        check_sharded(label, cards, log_n, f"{n_cards} row blocks" if even else "one device")
+        if d["sha256"] != single["sha256"]:
+            raise AssertionError(f"{label}: proof differs from the single-device proof")
+    else:
+        log(f"[mesh of cards] (d) not run: torch.cuda.device_count() is {n_cards}, and a mesh of "
+            f"separate cards needs two or more")
+    return a["launches"]
 
 
 def profile_prove(log_n: int) -> None:
@@ -611,10 +714,10 @@ def main() -> int:
     _, _, _, _, cfg6 = setup(*N64_3_CASE, 3)
     kernels = phase1(cfg8, cfg6, info)
     phase2("cuda")
-    runs = [phase3(20)]
+    single = phase3(20)
     profile_prove(20)
-    runs += [phase5(20), phase6(20)]
-    # the main paths' launches: the three 2^20 runs (each counted from 0)
+    runs = [single["launches"], phase5(20), phase6(20), phase7(20, single)]
+    # the main paths' launches: the four 2^20 runs (each counted from 0)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel launched in none of the 2^20 runs: {launches}")

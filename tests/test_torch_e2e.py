@@ -119,7 +119,9 @@ def test_port_verifier_accepts_golden_and_rejects_tampering():
 
 
 def test_port_runs_without_jax():
-    """The card's situation: jax cannot be imported at all."""
+    """The card's situation: jax cannot be imported at all.  A prove and a
+    verify on one device, then the prove on a mesh of 4 CPU shards (the
+    same bytes), load no jax and no module of the JAX package."""
     script = textwrap.dedent(
         f"""
         import os, random, sys
@@ -132,6 +134,13 @@ def test_port_runs_without_jax():
         cfg = zt.draw_random_field(st.public_input, t, 1, 4)
         proof = zt.ZincProver(zt.ZipTypes(1), device="cpu").prove(st, wit, t, ccs, cfg)
         zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(st, proof, zt.KeccakTranscript(), ccs, cfg)
+        from zinc_tpu_torch.parallel import Mesh
+        mesh = Mesh(["cpu"] * 4)
+        t = zt.KeccakTranscript()
+        cfg = zt.draw_random_field(st.public_input, t, 1, 4)
+        sharded = zt.ZincProver(zt.ZipTypes(1), mesh=mesh).prove(st, wit, t, ccs, cfg)
+        assert zt.serialize_proof(sharded, cfg) == zt.serialize_proof(proof, cfg)
+        assert mesh.stats["commit"] == ["4 row blocks"]
         assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
         assert "zinc_tpu" not in sys.modules and _cuda._libs == {{}}
         ref = os.path.join({str(ROOT)!r}, "zinc_tpu") + os.sep

@@ -401,3 +401,79 @@ def test_cuda_tensors_launch_the_generic_kernels(cuda_device, ctx):
     sk.round_eval_generic(ctx, tabs, [(0, 1, 2, 0, 1), (2,)], 6)
     sk.fold_round_eval(ctx, tabs, fm.int_to_words(3, 8), [(0, 1, 2, 0, 1), (2,)], 6)
     assert _cuda.LAUNCHES["round_eval_generic"] == 1 and _cuda.LAUNCHES["fold_round_eval"] == 1
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_their_tensors_card_on_cuda(cuda_device, ctx):
+    """Every wrapper on tensors of cuda:1 while cuda:0 is current launches on
+    cuda:1 (its card made current, its current stream; the grid probes read
+    that card) and equals its plain version; operands on two cards raise."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    other = torch.device("cuda", 1)
+    a, b = _residues(ctx, (4096,), 40), _residues(ctx, (4096,), 41)
+    tabs = _residues(ctx, (4, 2048), 42)
+    e = _residues(ctx, (1024,), 43)
+    r = fm.to_numpy(_residues(ctx, (1,), 44))[0]
+    generic = [(0, 1, 2, 3, 0), (2,)]
+    cases = [
+        (lambda x, y, t, l: fk.mont_mul(ctx, x, y), fk.mont_mul_plain(ctx, a, b)),
+        (lambda x, y, t, l: sk.fold(ctx, t, r), sk.fold_plain(ctx, tabs, r)),
+        (lambda x, y, t, l: sk.round_eval(ctx, t, [(0, 1), (1, 2, 3)], 4),
+         sk.round_eval_plain(ctx, tabs, [(0, 1), (1, 2, 3)], 4)),
+        (lambda x, y, t, l: sk.round_eval_gruen(ctx, t, l, [(0, 1), (2,)], 4),
+         sk.round_eval_gruen_plain(ctx, tabs, e, [(0, 1), (2,)], 4)),
+        (lambda x, y, t, l: sk.round_eval_generic(ctx, t, generic, 6),
+         sk.round_eval_generic_plain(ctx, tabs, generic, 6)),
+        (lambda x, y, t, l: sk.fold_round_eval(ctx, t, r, generic, 6),
+         sk.fold_round_eval_plain(ctx, tabs, r, generic, 6)),
+    ]
+    ins = [x.to(other) for x in (a, b, tabs, e)]
+    with torch.cuda.device(0):
+        for fn, want in cases:
+            got = fn(*ins)
+            torch.cuda.synchronize(other)
+            for g, w in zip(_flat(got), _flat(want)):
+                assert g.device == other and torch.equal(g.cpu(), w)
+        with pytest.raises(ValueError):
+            fk.mont_mul(ctx, a.to(cuda_device), ins[1])
+        with pytest.raises(ValueError):
+            sk.round_eval_gruen(ctx, ins[2], e.to("cuda:0"), [(0, 1)], 4)
+    assert any(key[0] == other for key in sk._EVAL_GRID)
+    assert any(key[0] == other for key in sk._GEN_PLAN)
+
+
+def _flat(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,degree,gruen", [
+    ([(1, (0, 1))], 2, False),  # sumcheck 2: K2 + K3
+    ([(1, (0, 1, 3)), (-1, (2, 3))], 3, True),  # sumcheck 1: K2 + K4
+    ([(1, (0, 1, 2, 3, 5)), (-1, (4, 5))], 5, False),  # path A: K7, K10
+], ids=["classic", "gruen", "generic"])
+def test_sharded_executor_on_one_card_on_cuda(cuda_device, spec, degree, gruen):
+    """Four shards of one card (Mesh([cuda:0] * 4)) at 2^12: the sharded
+    rounds (each shard's launches, the hand-over at 64 entries a shard)
+    equal the single-device rounds: evaluations, randomness, final values."""
+    from zinc_tpu_torch.parallel import Mesh, ShardedSumcheckExecutor
+    from zinc_tpu_torch.sumcheck.executor import make_executor, prove_with_executor
+    from zinc_tpu_torch.transcript import KeccakTranscript
+
+    cfg = FieldConfig(Q, 4)
+    c = fm.device_field(cfg)
+    nv = 12
+    n_tab = 1 + max(i for _, t in spec for i in t) - (1 if gruen else 0)
+    tabs = _residues(c, (n_tab, 1 << nv), 45, cuda_device)
+    rng = np.random.default_rng(46)
+    beta = [cfg.fp(int(x)) for x in rng.integers(0, 1 << 62, nv)] if gruen else None
+    comb = [(cfg.fp(k), t) for k, t in spec]
+
+    def drive(ex):
+        proof, rnd = prove_with_executor(KeccakTranscript(), ex, nv, degree, cfg)
+        return [[x.m for x in e] for e in proof], [x.m for x in rnd], [x.m for x in ex.final_values()]
+
+    sharded = ShardedSumcheckExecutor(cfg, tabs, degree, comb, Mesh([cuda_device] * 4), beta)
+    assert drive(sharded) == drive(make_executor(cfg, tabs, degree, comb, beta))
+    assert sharded.sharded_rounds == 4  # blocks of 1024 down to 128 entries

@@ -125,3 +125,93 @@ def test_combine_rows_signed_matches_jax():
         exact = sum(coeffs[i] * int(evals[i, col]) for i in range(r)) % width
         assert int.from_bytes(got[col].astype("<u4").tobytes(), "little") == exact
         assert int.from_bytes(want[col].astype("<u2").tobytes(), "little") == exact
+
+
+def _zlc_pair(n):
+    """The JAX package's and the port's ZipLinearCode over n entries, from
+    the same transcript (tests/test_zip_device.py:124's case)."""
+    from zinc_tpu.transcript import KeccakTranscript as JKeccakTranscript
+    from zinc_tpu.zip.code import ZipLinearCode as JZipLinearCode
+    from zinc_tpu_torch.transcript import KeccakTranscript
+    from zinc_tpu_torch.zip.code import ZipLinearCode
+
+    jt, t = JKeccakTranscript(), KeccakTranscript()
+    jt.absorb(b"zlc-dev")
+    t.absorb(b"zlc-dev")
+    jpp = jpcs.setup(n, JZipLinearCode(JSpec(), n, jt, JZipTypes(1)), JZipTypes(1))
+    return jpp, pcs.setup(n, ZipLinearCode(DefaultLinearCodeSpec(), n, t, ZipTypes(1)), ZipTypes(1))
+
+
+def test_zip_linear_code_commit_and_open_match_host():
+    """The ZipLinearCode on the device (one exact float64 product with its
+    dense 0/1 matrix): codewords, roots and opening bytes equal the JAX
+    package's host commit and ``open_poly``; the verifier (whose encode is
+    host code for either code) accepts and rejects a flipped byte."""
+    nv = 6
+    jpp, pp = _zlc_pair(1 << nv)
+    rng = random.Random(31)
+    vals = [rng.randrange(-(1 << 60), 1 << 60) for _ in range(1 << nv)]
+    point_ints = [rng.randrange(Q) for _ in range(nv)]
+    jcfg, cfg = JFieldConfig(Q, 4), FieldConfig(Q, 4)
+    jdata, jcomm = jpcs.commit(jpp, JDenseMleZ(nv, vals))
+    jt = JPcsTranscript()
+    jpcs.open_poly(jpp, JDenseMleZ(nv, vals), jdata, [jcfg.fp_from_mont(x) for x in point_ints],
+                   jcfg, jt)
+
+    z = np.array(vals, np.int64)
+    data, comm = commit_device(pp, z, cfg, "cpu")
+    assert comm.roots == jcomm.roots
+    enc = data.enc.numpy().view(np.uint32)
+    width = 1 << (64 * pp.zt.k_words)
+    assert [int.from_bytes(enc[r, c].astype("<u4").tobytes(), "little")
+            for r in range(pp.num_rows) for c in range(pp.code.codeword_len())] == \
+        [v % width for v in jdata.rows]
+    t = PcsTranscript()
+    point = [cfg.fp_from_mont(x) for x in point_ints]
+    open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
+    proof = t.into_proof()
+    assert proof == jt.into_proof()
+    v = DenseMleZ(nv, vals).map_to_field(cfg).evaluate(point)
+    pcs.verify_poly(pp, comm, point, v, PcsTranscript.from_proof(proof), cfg, "cpu")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 0x01
+    with pytest.raises(pcs.PcsError):
+        pcs.verify_poly(pp, comm, point, v, PcsTranscript.from_proof(bytes(bad)), cfg, "cpu")
+
+
+def test_single_row_layout_verifies():
+    """``setup`` gives one row when the code's row_len covers the whole
+    polynomial (a code built for 16 entries, row_len 4, over 4 entries).  A
+    proof of the JAX host PCS in that layout (no proximity rows; the field
+    phase checks each opened value against the re-encoded row, ``zip/pcs.py:
+    467-475``) is accepted by the port's verifier and a flipped byte is
+    rejected; the port's device commit and open give the same bytes."""
+    seeds = _Seeds()
+    jpp = jpcs.setup(4, JRaaCode(JSpec(), 16, seeds, JZipTypes(1)), JZipTypes(1))
+    pp = pcs.setup(4, RaaCode(DefaultLinearCodeSpec(), 16, _Seeds(), ZipTypes(1)), ZipTypes(1))
+    assert jpp.num_rows == pp.num_rows == 1 and pp.code.row_len == 4
+    rng = random.Random(8)
+    vals = [rng.randrange(-(1 << 62), 1 << 62) for _ in range(4)]
+    point_ints = [rng.randrange(Q) for _ in range(2)]
+    jcfg, cfg = JFieldConfig(Q, 4), FieldConfig(Q, 4)
+    jdata, jcomm = jpcs.commit(jpp, JDenseMleZ(2, vals))
+    jt = JPcsTranscript()
+    jpcs.open_poly(jpp, JDenseMleZ(2, vals), jdata, [jcfg.fp_from_mont(x) for x in point_ints],
+                   jcfg, jt)
+    proof = jt.into_proof()
+
+    point = [cfg.fp_from_mont(x) for x in point_ints]
+    v = DenseMleZ(2, vals).map_to_field(cfg).evaluate(point)
+    comm = pcs.ZipCommitment(jcomm.roots)
+    pcs.verify_poly(pp, comm, point, v, PcsTranscript.from_proof(proof), cfg, "cpu")
+    for pos in (10, len(proof) - 5):  # a column record; the evaluation row
+        bad = bytearray(proof)
+        bad[pos] ^= 0x01
+        with pytest.raises(pcs.PcsError):
+            pcs.verify_poly(pp, comm, point, v, PcsTranscript.from_proof(bytes(bad)), cfg, "cpu")
+
+    z = np.array(vals, np.int64)
+    data, dcomm = commit_device(pp, z, cfg, "cpu")
+    t = PcsTranscript()
+    open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
+    assert dcomm.roots == jcomm.roots and t.into_proof() == proof

@@ -74,19 +74,24 @@ def i64_to_mag8(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return mags.astype("<u8").view(np.uint8).reshape(values.shape + (8,)), signs
 
 
-def combine_rows_signed(
+def combine_rows_acc(
     coeff_mag8: torch.Tensor,  # (R, Lc8) 8-bit limbs
     coeff_sign: torch.Tensor,  # (R,) ±1
     eval_mag8: torch.Tensor,  # (R, C, Le8)
     eval_sign: torch.Tensor,  # (R, C) ±1
-    out_words: int,
 ) -> torch.Tensor:
-    """Σᵣ coeffᵣ·evalᵣ,c → (C, out_words) two's-complement canonical words."""
-    r = eval_mag8.shape[0]
-    assert r < 1 << 37
+    """(C, Lc8, Le8) int64 limb-product sums Σᵣ ±coeffᵣ[i]·evalᵣ,c[j]: linear
+    in the rows, so the accumulators of row blocks add exactly
+    (``zinc_tpu/fields/integers.py:combine_rows_acc``)."""
+    assert eval_mag8.shape[0] < 1 << 37
     cm = coeff_mag8.to(torch.float64) * coeff_sign.to(torch.float64).unsqueeze(-1)
     em = eval_mag8.to(torch.float64) * eval_sign.to(torch.float64).unsqueeze(-1)
-    g = torch.einsum("ri,rcj->cij", cm, em).to(torch.int64)  # |g| ≤ R·255²
+    return torch.einsum("ri,rcj->cij", cm, em).to(torch.int64)  # |g| ≤ R·255²
+
+
+def combine_acc_to_words(g: torch.Tensor, out_words: int) -> torch.Tensor:
+    """A (C, Lc8, Le8) accumulator → (C, out_words) two's-complement
+    canonical words of the combined integers (one carry)."""
     c, lc, le = g.shape
     n8 = 4 * out_words
     cols = torch.zeros((c, max(n8, lc + le)), dtype=torch.int64, device=g.device)
@@ -96,3 +101,9 @@ def combine_rows_signed(
     # 8-bit columns → lazy 32-bit word columns (|x| < 2^62)
     lazy = cols[:, 0::4] + (cols[:, 1::4] << 8) + (cols[:, 2::4] << 16) + (cols[:, 3::4] << 24)
     return carry(lazy, out_words)
+
+
+def combine_rows_signed(coeff_mag8, coeff_sign, eval_mag8, eval_sign, out_words: int) -> torch.Tensor:
+    """Σᵣ coeffᵣ·evalᵣ,c → (C, out_words) two's-complement canonical words."""
+    return combine_acc_to_words(combine_rows_acc(coeff_mag8, coeff_sign, eval_mag8, eval_sign),
+                                out_words)

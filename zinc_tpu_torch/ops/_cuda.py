@@ -12,7 +12,10 @@ register and spill report (``-Xptxas -v``).  Every C entry point returns
 ``cudaGetLastError()``; :func:`check` raises when it is not 0.
 
 ``LAUNCHES`` counts kernel launches per kernel (over all widths); a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else.  A wrapper launches
+on its tensors' card, made current for the call (:func:`on_device`), on that
+card's current stream (:func:`stream_ptr`), and raises when its tensors lie
+on different devices.
 """
 
 from __future__ import annotations
@@ -166,8 +169,16 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def on_device(x: torch.Tensor):
+    """The context a launch on ``x``'s card runs in: that card is current, so
+    the library's ``cudaGetDevice``, occupancy probes and per-device
+    attributes (``csrc/generic.cuh:prepare_smem``) act on it."""
+    return torch.cuda.device(x.device)
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device``, the one its launches go on."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def host_words(words: np.ndarray) -> np.ndarray:

@@ -16,6 +16,7 @@ import torch
 from ..hashing.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
 
 M32 = 0xFFFFFFFF
+FLAGS = CHUNK_START | CHUNK_END | ROOT  # every node is one single-block chunk
 
 
 def _round_perms() -> list[list[int]]:
@@ -98,12 +99,16 @@ def merkle_tree_device(enc: torch.Tensor, k_words: int) -> list[torch.Tensor]:
     are the words in little-endian order)."""
     r, n, w = enc.shape
     assert w == 2 * k_words
-    flags = CHUNK_START | CHUNK_END | ROOT
     msg = leaf_msg_words(enc.reshape(r * n, w).to(torch.int64) & M32)
-    level = compress_batch(msg, 8 * k_words, flags).reshape(r, n, 8)
+    level = compress_batch(msg, 8 * k_words, FLAGS).reshape(r, n, 8)
     layers = [level]
     while level.shape[1] > 1:
-        pairs = level.reshape(-1, 16)
-        level = compress_batch(pairs, 64, flags).reshape(r, -1, 8)
+        level = merge_level(level)
         layers.append(level)
     return layers
+
+
+def merge_level(level: torch.Tensor) -> torch.Tensor:
+    """One Merkle level up: (R, N, 8) digests → (R, N/2, 8), node i the hash
+    of children 2i ‖ 2i+1."""
+    return compress_batch(level.reshape(-1, 16), 64, FLAGS).reshape(level.shape[0], -1, 8)

@@ -41,10 +41,11 @@ def mont_mul(ctx: fm.DeviceField, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
     bv = b.expand(shape).reshape(-1, n).contiguous()
     out = torch.empty_like(av)
     q = _cuda.modulus_words(ctx)
-    rc = _cuda.lib(n).zt_mont_mul(
-        out.data_ptr(), av.data_ptr(), bv.data_ptr(), av.shape[0], n,
-        q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
-    )
+    with _cuda.on_device(out):
+        rc = _cuda.lib(n).zt_mont_mul(
+            out.data_ptr(), av.data_ptr(), bv.data_ptr(), av.shape[0], n,
+            q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(out.device),
+        )
     _cuda.check(rc, "mont_mul")
     _cuda.LAUNCHES["mont_mul"] += 1
     return out.reshape(shape)

@@ -9,6 +9,7 @@ opening value z̃(r_y) (sumcheck 2).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -74,10 +75,21 @@ def spartan_prove_device(
     ccs: CCS,  # integer-flavour CCS
     transcript: KeccakTranscript,
     cfg: FieldConfig,
+    mesh=None,
 ):
-    """Returns (SpartanProof, r_y, v) with v = z̃(r_y) for the PCS binding."""
+    """Returns (SpartanProof, r_y, v) with v = z̃(r_y) for the PCS binding.
+
+    With a ``mesh`` (``parallel.Mesh``), the setups run where z_f lies (the
+    mesh's first device) and both sumchecks run block-sharded over the
+    mesh's shards (``parallel/sumcheck.py``); the transcript is identical."""
     device = z_f.device
     c_f = [cfg.fp(ci) for ci in ccs.c]
+    if mesh is None:
+        prove = prove_as_subprotocol_device
+    else:
+        from .parallel.sumcheck import prove_sharded
+
+        prove = functools.partial(prove_sharded, mesh=mesh)
 
     # ---- sumcheck 1 -------------------------------------------------------
     beta_s = squeeze_beta_challenges(transcript, ccs.s, cfg)
@@ -89,7 +101,7 @@ def spartan_prove_device(
             cfg, dstatement.matrices, z_f, fps_to_tensor(beta_s, cfg, device), not gruen1
         )
     with timed("spartan.sumcheck1"):
-        proof1, r_x, finals1 = prove_as_subprotocol_device(
+        proof1, r_x, finals1 = prove(
             transcript, cfg, tables, ccs.s, ccs.d + 1, comb1,
             eq_beta=beta_s if gruen1 else None,
         )
@@ -104,7 +116,7 @@ def spartan_prove_device(
         )
     comb2 = [(cfg.one(), (0, 1))]
     with timed("spartan.sumcheck2"):
-        proof2, r_y, finals2 = prove_as_subprotocol_device(transcript, cfg, tables2, ccs.s, 2, comb2)
+        proof2, r_y, finals2 = prove(transcript, cfg, tables2, ccs.s, 2, comb2)
     v = finals2[1]
 
     return SpartanProof(proof1, proof2, v_s), r_y, v

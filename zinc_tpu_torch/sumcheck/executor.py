@@ -1,17 +1,38 @@
-"""The per-round sumcheck executor and its round loop: the generic tier.
+"""The per-round sumcheck executor and its round loop, on one device or on
+the blocks of a mesh.
 
-The port of ``zinc_tpu/sumcheck/device.py:157-227`` and
-``zinc_tpu/sumcheck/pallas_exec.py:212-301``.  The tables stay on their
-device; each round runs one kernel and sends only the round's sums to the
-host, which reduces them mod q, applies the coefficients and feeds the
-transcript.  Rounds follow ``PallasSumcheckExecutor``:
+The port of ``zinc_tpu/sumcheck/device.py:157-227``,
+``zinc_tpu/sumcheck/pallas_exec.py:212-301`` and the round logic of
+``zinc_tpu/sumcheck/device_fs.py``.  The tables stay on their devices; each
+round runs its kernels and sends only the round's sums to the host, which
+reduces them mod q, applies the coefficients and feeds the transcript.  The
+executor takes one of three tiers, by the combination:
 
-* round 0: ``round_eval_generic`` (K7/K9);
-* rounds ≥ 1: ``fold_round_eval`` (K10), fold and evaluation in one launch,
-  into a fresh buffer;
-* once a table has at most ``HOST_TAIL`` entries: the last device fold
-  (``fold``, K2/K8) and the remaining rounds on the host, with the
-  reference's host prover.  Transcripts do not depend on the split.
+* **classic** (K3's scope): rounds ≥ 1 ``fold`` (K2), every round
+  ``round_eval`` (K3);
+* **Gruen** (eq factored out, ``eq_beta`` given): ``fold`` and
+  ``round_eval_gruen`` (K4) against the suffix-eq level of the round;
+* **generic** (any other combination, ``device_fs.py:284,332-351``): round 0
+  ``round_eval_generic`` (K7/K9), rounds ≥ 1 ``fold_round_eval`` (K10), fold
+  and evaluation in one launch, into a fresh buffer.
+
+Once a table has at most ``HOST_TAIL`` entries, the last device fold and
+the remaining rounds run on the host with the reference's host prover
+(Gruen hands the folded eq row pref·E over with the tables, so the host
+sees the classic combination).  Transcripts do not depend on the split.
+
+**Blocks.**  The tables may come as D contiguous blocks of their hypercube
+axis, block s holding entries [s·b/D, (s+1)·b/D) on its own device (a
+mesh's shards, ``parallel/sumcheck.py``).  A fold pairs (2p, 2p+1), so each
+block folds on its own, with no data movement, and the folded blocks are
+again the folded table's blocks in natural order.  A round queues every
+block's launches before it fetches any sums, then adds the D residues of
+each sum mod q on the host (exact, in any order).  Gruen's block s weighs
+its pairs with the s-th contiguous slice of the round's eq level: pairs sit
+in natural order, so the slice is that block's.  Once a block has at most
+``HOST_TAIL`` entries, the blocks are joined on the first block's device
+(at most HOST_TAIL·D entries a table) and the rounds go on there, the pref
+ratchet unchanged.  With one block, this is the single-device sumcheck.
 
 The kernels run on the tables' device: a CPU tensor takes their plain
 versions, so there is one executor for every platform.
@@ -25,17 +46,43 @@ from ..fields.config import FieldConfig, Fp
 from ..sumcheck.prover import _absorb_nvars_degree, _fold, _round_evals
 from ..transcript import KeccakTranscript
 from ..fields.montgomery import device_field
-from ..poly.device import fps_to_limbs, tensor_to_fps
+from ..ops.field_kernels import mont_mul
+from ..poly.device import eq_levels, fps_to_limbs, fps_to_tensor, tensor_to_fps
 from . import kernels
 
 HOST_TAIL = 64  # tables of at most this many entries finish on the host
 
 
-def round_values(cfg: FieldConfig, sums: torch.Tensor, coeffs, gruen_factor=None) -> list[Fp]:
+def wants_gruen(cfg: FieldConfig, comb, eq_idx: int, b: int) -> bool:
+    """True when the Gruen kernel drives this shape: every term carries eq
+    last with 1-3 other factors, ≤ 512-bit field, and at least two device
+    rounds (so the ratchet and the fold both run)."""
+    idx_terms = [tuple(idxs) for _, idxs in comb]
+    return kernels.gruen_supported(idx_terms, eq_idx, 2 * cfg.n64) and b > 2 * HOST_TAIL
+
+
+def uses_generic(cfg: FieldConfig, comb, degree: int) -> bool:
+    """True when the classic rounds send this comb to the generic tier:
+    some term is outside K3's scope (``device_fs.py:284``), or the degree
+    needs more points than K3 takes."""
+    idx_terms = [tuple(idxs) for _, idxs in comb]
+    return degree + 1 > kernels.MAX_POINTS or not kernels.classic_supported(
+        idx_terms, 2 * cfg.n64, degree + 1)
+
+
+def _eq_factor(beta: Fp, r: Fp) -> Fp:
+    one = beta.cfg.one()
+    return (one - beta) * (one - r) + beta * r
+
+
+def round_values(cfg: FieldConfig, sums, coeffs, gruen_factor=None) -> list[Fp]:
     """Round evaluations s(0..d) from the kernels' per-term sums
-    (n_terms, d+1, n32): Σ_k coeff_k·(sum mod q), times pref·c_j(t) with
+    (n_terms, d+1, n32), or from a list of them, one per block, whose
+    residues add mod q: Σ_k coeff_k·(sum mod q), times pref·c_j(t) with
     c_j(t) = (1−β_j)(1−t) + β_j·t when ``gruen_factor`` = (pref, β_j)."""
-    res = kernels.sums_to_ints(device_field(cfg), sums)
+    ctx = device_field(cfg)
+    parts = sums if isinstance(sums, (list, tuple)) else [sums]
+    res = sum(kernels.sums_to_ints(ctx, s) for s in parts) % cfg.q
     one = cfg.one()
     evals = []
     for t in range(res.shape[1]):
@@ -51,25 +98,84 @@ def round_values(cfg: FieldConfig, sums: torch.Tensor, coeffs, gruen_factor=None
 
 
 class DeviceSumcheckExecutor:
-    """Runs the rounds of one sumcheck over stacked tables
-    (n_mles, 2^nvars, n32) of Montgomery residues, comb a CombSpec."""
+    """Runs the rounds of one sumcheck over stacked tables (n_mles, 2^nvars,
+    n32) of Montgomery residues, or over their D blocks (a list, see the
+    module notes); comb a CombSpec.  With ``eq_beta`` the tables exclude the
+    eq MLE, which the combination names as index n_mles (Gruen)."""
 
-    def __init__(self, cfg: FieldConfig, tables: torch.Tensor, degree: int, comb):
+    def __init__(self, cfg: FieldConfig, tables, degree: int, comb, eq_beta=None):
         self.cfg = cfg
         self.ctx = device_field(cfg)
+        if self.ctx.n32 > kernels.MAX_WORDS:
+            raise ValueError(f"no round kernels for {self.ctx.n32}-word fields "
+                             f"(at most {kernels.MAX_WORDS})")
         self.degree = degree
         self.comb = comb
         self.coeffs = [c for c, _ in comb]
         self.idx_terms = [tuple(idxs) for _, idxs in comb]
-        self.buf = tables.contiguous()
+        blocks = list(tables) if isinstance(tables, (list, tuple)) else [tables]
+        self.blocks = [b.contiguous() for b in blocks]
+        self.home = self.blocks[0].device
+        self.size = sum(b.shape[1] for b in self.blocks)  # entries a table
+        self.folds = 0
+        self.sharded_rounds = 0  # rounds evaluated on more than one block
         self._host_mles: list[list[Fp]] | None = None
+        if eq_beta is not None:
+            if not wants_gruen(cfg, comb, self.blocks[0].shape[0], self.size):
+                raise ValueError("the Gruen rounds need wants_gruen(); use the classic rounds")
+            self.tier = "gruen"
+            self.beta = list(eq_beta)
+            self.pref = cfg.one()
+            self.rests = [t[:-1] for t in self.idx_terms]
+            self.levels = eq_levels(self.ctx, fps_to_tensor(self.beta, cfg, self.home))
+        else:
+            self.tier = "generic" if uses_generic(cfg, comb, degree) else "classic"
+
+    # -- the host tail -------------------------------------------------------
+
+    def _joined(self) -> torch.Tensor:
+        if len(self.blocks) == 1:
+            return self.blocks[0]
+        return torch.cat([b.to(self.home) for b in self.blocks], dim=1)
 
     def _demote_to_host(self) -> None:
-        self._host_mles = [tensor_to_fps(self.buf[i], self.cfg) for i in range(self.buf.shape[0])]
-        self.buf = None
+        buf = self._joined()
+        mles = [tensor_to_fps(buf[i], self.cfg) for i in range(buf.shape[0])]
+        if self.tier == "gruen":
+            pref = fps_to_tensor([self.pref], self.cfg, self.home)[0]
+            mles.append(tensor_to_fps(mont_mul(self.ctx, self.levels[self.folds], pref), self.cfg))
+        self._host_mles = mles
+        self.blocks = None
 
     def _host_round(self) -> list[Fp]:
         return _round_evals(self._host_mles, self.degree, self.comb, self.cfg)
+
+    # -- device rounds -------------------------------------------------------
+
+    def _bound(self, r_prev: Fp) -> None:
+        """Book one fold by r_prev: the size and, for Gruen, the pref ratchet."""
+        if self.tier == "gruen":
+            self.pref = self.pref * _eq_factor(self.beta[self.folds], r_prev)
+        self.folds += 1
+        self.size //= 2
+
+    def _values(self, sums: list, gruen_factor=None) -> list[Fp]:
+        if len(sums) > 1:
+            self.sharded_rounds += 1
+        return round_values(self.cfg, sums, self.coeffs, gruen_factor)
+
+    def _evaluate(self) -> list[Fp]:
+        ctx, n_pts = self.ctx, self.degree + 1
+        if self.tier == "gruen":
+            parts = self.levels[self.folds + 1].chunk(len(self.blocks))
+            sums = [kernels.round_eval_gruen(ctx, b, e.to(b.device), self.rests, n_pts)
+                    for b, e in zip(self.blocks, parts)]
+            return self._values(sums, (self.pref, self.beta[self.folds]))
+        if self.tier == "classic":
+            return self._values([kernels.round_eval(ctx, b, self.idx_terms, n_pts)
+                                 for b in self.blocks])
+        return self._values([kernels.round_eval_generic(ctx, b, self.idx_terms, n_pts)
+                             for b in self.blocks])
 
     def round(self, r_prev: Fp | None) -> list[Fp]:
         """The round's evaluations at 0..degree, after folding r_prev (None
@@ -77,41 +183,44 @@ class DeviceSumcheckExecutor:
         if self._host_mles is not None:
             self._host_mles = _fold(self._host_mles, r_prev)
             return self._host_round()
-        n_pts = self.degree + 1
-        if r_prev is None:
-            if self.buf.shape[1] <= HOST_TAIL:
-                self._demote_to_host()
-                return self._host_round()
-            sums = kernels.round_eval_generic(self.ctx, self.buf, self.idx_terms, n_pts)
-            return round_values(self.cfg, sums, self.coeffs)
-        r = fps_to_limbs([r_prev], self.cfg)[0]
-        if self.buf.shape[1] // 2 <= HOST_TAIL:
-            self.buf = kernels.fold(self.ctx, self.buf, r)
+        if r_prev is not None:
+            r = fps_to_limbs([r_prev], self.cfg)[0]
+            if self.tier == "generic" and self.blocks[0].shape[1] // 2 > HOST_TAIL:
+                out = [kernels.fold_round_eval(self.ctx, b, r, self.idx_terms, self.degree + 1)
+                       for b in self.blocks]
+                self.blocks = [folded for folded, _ in out]
+                self._bound(r_prev)
+                return self._values([sums for _, sums in out])
+            self.blocks = [kernels.fold(self.ctx, b, r) for b in self.blocks]
+            self._bound(r_prev)
+        if self.size <= HOST_TAIL:
             self._demote_to_host()
             return self._host_round()
-        self.buf, sums = kernels.fold_round_eval(self.ctx, self.buf, r, self.idx_terms, n_pts)
-        return round_values(self.cfg, sums, self.coeffs)
+        if len(self.blocks) > 1 and self.blocks[0].shape[1] <= HOST_TAIL:
+            self.blocks = [self._joined()]  # the hand-over to the first block's device
+        return self._evaluate()
 
     def final_fold(self, r: Fp) -> None:
         if self._host_mles is not None:
             self._host_mles = _fold(self._host_mles, r)
         else:
-            self.buf = kernels.fold(self.ctx, self.buf, fps_to_limbs([r], self.cfg)[0])
+            rw = fps_to_limbs([r], self.cfg)[0]
+            self.blocks = [kernels.fold(self.ctx, b, rw) for b in self.blocks]
+            self._bound(r)
 
     def final_values(self) -> list[Fp]:
-        """The fully folded value of every MLE."""
-        if self._host_mles is not None:
-            assert all(len(m) == 1 for m in self._host_mles)
-            return [m[0] for m in self._host_mles]
-        assert self.buf.shape[1] == 1
-        return tensor_to_fps(self.buf[:, 0], self.cfg)
+        """The fully folded value of every MLE (the eq MLE last for Gruen)."""
+        if self._host_mles is None:
+            self._demote_to_host()
+        assert all(len(m) == 1 for m in self._host_mles)
+        return [m[0] for m in self._host_mles]
 
 
-def make_executor(cfg: FieldConfig, tables: torch.Tensor, degree: int, comb) -> DeviceSumcheckExecutor:
+def make_executor(cfg: FieldConfig, tables, degree: int, comb, eq_beta=None) -> DeviceSumcheckExecutor:
     """The executor for these tables.  The reference picks its Pallas or XLA
     executor by platform; here the kernels' wrappers pick by the tables'
     device, so there is one executor."""
-    return DeviceSumcheckExecutor(cfg, tables, degree, comb)
+    return DeviceSumcheckExecutor(cfg, tables, degree, comb, eq_beta)
 
 
 def prove_with_executor(
@@ -126,7 +235,7 @@ def prove_with_executor(
 
     The reference's ``prove_as_subprotocol_device(transcript, executor, …)``
     (``zinc_tpu/sumcheck/device.py:206-227``) under another name: in this
-    port that name is the table-level round loop of ``sumcheck/device.py``."""
+    port that name is the table-level entry of ``sumcheck/device.py``."""
     _absorb_nvars_degree(transcript, nvars, degree, cfg)
     randomness: list[Fp] = []
     proof = []

@@ -222,10 +222,11 @@ def fold(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray) -> torch.Tensor:
     if out.numel() == 0:
         return out
     rw, q = _cuda.host_words(r), _cuda.modulus_words(ctx)
-    rc = _cuda.lib(n).zt_fold(
-        out.data_ptr(), tables.data_ptr(), n_tab * (b // 2), n, rw.ctypes.data,
-        q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(),
-    )
+    with _cuda.on_device(tables):
+        rc = _cuda.lib(n).zt_fold(
+            out.data_ptr(), tables.data_ptr(), n_tab * (b // 2), n, rw.ctypes.data,
+            q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(tables.device),
+        )
     _cuda.check(rc, "fold")
     _cuda.LAUNCHES["fold"] += 1
     return out
@@ -273,6 +274,8 @@ _EVAL_GRID: dict[tuple, int] = {}
 
 
 def _eval_max_grid(lib, dev, n32: int, gruen: bool, n_slots: int, block: int) -> int:
+    """The most K3/K4 blocks resident at once on ``dev``; the caller has made
+    ``dev`` current (:func:`_cuda.on_device`), so the probe reads that card."""
     key = (dev, n32, gruen, n_slots, block)
     if key not in _EVAL_GRID:
         max_grid = ctypes.c_int(0)
@@ -306,17 +309,18 @@ def _eval_launch(fn_name, ctx, tables, terms, n_pts, e_level=None) -> torch.Tens
     n_fac, fac = _eval_comb(tuple(map(tuple, terms)))
     wide_slots = eval_slots(terms)
     block = eval_block(wide_slots, n)
-    max_grid = _eval_max_grid(lib, dev, n, e_level is not None, wide_slots, block)
-    grid = max(1, min(-(-pairs // block), max_grid))
-    rows = (grid + 1) * n_slots * n
-    buf = torch.empty(rows + 1, dtype=torch.int32, device=dev)
-    ptr = buf.data_ptr()
-    rc = lib.zt_round_eval(
-        ptr, ptr + 4 * n_slots * n, ptr + 4 * rows, tables.data_ptr(), b, pairs,
-        None if e_level is None else e_level.data_ptr(), n_fac.ctypes.data, fac.ctypes.data,
-        len(terms), n_pts, block, grid, n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32,
-        _cuda.stream_ptr(),
-    )
+    with _cuda.on_device(tables):
+        max_grid = _eval_max_grid(lib, dev, n, e_level is not None, wide_slots, block)
+        grid = max(1, min(-(-pairs // block), max_grid))
+        rows = (grid + 1) * n_slots * n
+        buf = torch.empty(rows + 1, dtype=torch.int32, device=dev)
+        ptr = buf.data_ptr()
+        rc = lib.zt_round_eval(
+            ptr, ptr + 4 * n_slots * n, ptr + 4 * rows, tables.data_ptr(), b, pairs,
+            None if e_level is None else e_level.data_ptr(), n_fac.ctypes.data, fac.ctypes.data,
+            len(terms), n_pts, block, grid, n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32,
+            _cuda.stream_ptr(dev),
+        )
     _cuda.check(rc, fn_name)
     _cuda.LAUNCHES[fn_name] += 1
     return buf[: n_slots * n].view(len(terms), n_pts, n)
@@ -437,7 +441,8 @@ _GEN_PLAN: dict[tuple, tuple[int, bool, int]] = {}
 def generic_plan(lib, dev, n32: int, warps: int, n_tab: int, fold: bool) -> tuple[int, bool, int]:
     """(block, staged, max grid) of a generic launch, the one place this is
     decided (the launch takes it): :func:`generic_layout`, and the most
-    blocks resident on the card at once (``zt_gen_max_grid``)."""
+    blocks resident at once on ``dev`` (``zt_gen_max_grid``), which the
+    caller has made current (:func:`_cuda.on_device`)."""
     key = (dev, n32, warps, n_tab, fold)
     if key not in _GEN_PLAN:
         block, staged = generic_layout(n32, warps, n_tab, fold)
@@ -461,22 +466,24 @@ def _generic_launch(name, ctx, tables, terms, n_pts, folded=None, r=None) -> tor
     n_tab, b = tables.shape[0], tables.shape[1]
     fold = folded is not None
     pairs = b // 4 if fold else b // 2
-    block, staged, max_grid = generic_plan(lib, tables.device, n, generic_warps(terms, n_pts, n),
-                                           n_tab, fold)
-    grid = max(1, min(-(-pairs // 32), max_grid))
+    dev = tables.device
     n_out, n_sums = len(terms) * n_pts * n, generic_slots(terms, n_pts) * n
-    buf = torch.empty(n_out + 3 * n_sums + 1, dtype=torch.int32, device=tables.device)
-    ptr = buf.data_ptr()
-    bufs = (ptr, ptr + 4 * n_out, ptr + 4 * (n_out + n_sums))
     start, fac = _comb_arrays(tuple(map(tuple, terms)))
-    comb = (start.ctypes.data, fac.ctypes.data, len(terms), n_pts, block, grid, int(staged))
-    field = (n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32, _cuda.stream_ptr())
-    if fold:
-        rw = _cuda.host_words(r)
-        rc = lib.zt_fold_round_eval(*bufs, folded.data_ptr(), tables.data_ptr(), n_tab, b,
-                                    rw.ctypes.data, *comb, *field)
-    else:
-        rc = lib.zt_round_eval_generic(*bufs, tables.data_ptr(), n_tab, b, *comb, *field)
+    rw = _cuda.host_words(r) if fold else None
+    with _cuda.on_device(tables):
+        block, staged, max_grid = generic_plan(lib, dev, n, generic_warps(terms, n_pts, n), n_tab,
+                                               fold)
+        grid = max(1, min(-(-pairs // 32), max_grid))
+        buf = torch.empty(n_out + 3 * n_sums + 1, dtype=torch.int32, device=dev)
+        ptr = buf.data_ptr()
+        bufs = (ptr, ptr + 4 * n_out, ptr + 4 * (n_out + n_sums))
+        comb = (start.ctypes.data, fac.ctypes.data, len(terms), n_pts, block, grid, int(staged))
+        field = (n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32, _cuda.stream_ptr(dev))
+        if fold:
+            rc = lib.zt_fold_round_eval(*bufs, folded.data_ptr(), tables.data_ptr(), n_tab, b,
+                                        rw.ctypes.data, *comb, *field)
+        else:
+            rc = lib.zt_round_eval_generic(*bufs, tables.data_ptr(), n_tab, b, *comb, *field)
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return buf[:n_out].view(len(terms), n_pts, n)

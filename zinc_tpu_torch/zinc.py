@@ -9,7 +9,9 @@ Spartan, verifies the PCS opening and closes with
 
 Both run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, and raise when there is no card; proofs are
-byte-identical to the JAX package's for the same inputs.  A sharded ``mesh`` is not part of the port.
+byte-identical to the JAX package's for the same inputs.  The prover also
+runs on a ``parallel.Mesh`` of devices (1-D, or 2-D "r" × "c"), with the
+same proof bytes; the verifier runs on one device, as the reference's does.
 """
 
 from __future__ import annotations
@@ -56,14 +58,19 @@ def _z_vector(statement: Statement, wit: Witness, ccs: CCS) -> list[int]:
 
 
 class ZincProver:
-    """Top-level prover; every hot path runs on ``device``."""
+    """Top-level prover; every hot path runs on ``device``, or on ``mesh``
+    (``zinc_tpu/zinc.py:147-166``): then the upload and the Spartan setups
+    run on the mesh's first device, the sumchecks over all its shards, and
+    the commit over its rows (1-D) or rows × columns (2-D), and ``device``
+    is not used."""
 
     def __init__(self, zt: ZipTypes, lc_spec: LinearCodeSpec | None = None, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the port proves on one device; mesh is not supported")
         self.zt = zt
         self.lc_spec = lc_spec or DefaultLinearCodeSpec()
-        self.device = target_device(device)
+        if mesh is not None and len(mesh.axis_names) > 2:
+            raise ValueError(f"a mesh of 1 or 2 axes, not {mesh.axis_names}")
+        self.mesh = mesh
+        self.device = target_device(device if mesh is None else mesh.first)
 
     def prove(
         self, statement: Statement, wit: Witness, transcript: KeccakTranscript, ccs: CCS,
@@ -72,12 +79,14 @@ class ZincProver:
         from .spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
         from .zip.device import commit_device, open_device
 
+        mesh = self.mesh
+
         z_ccs = _z_vector(statement, wit, ccs)
         with timed("prove.upload"):
             dstatement = DeviceStatement.upload(cfg, statement, self.device)
             z_f = z_to_device(cfg, z_ccs, self.device)
         with timed("prove.spartan"):
-            spartan_proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, transcript, cfg)
+            spartan_proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, transcript, cfg, mesh)
 
         code = RaaCode(self.lc_spec, ccs.m, transcript, self.zt)
         pp = setup(ccs.m, code, self.zt)
@@ -86,7 +95,16 @@ class ZincProver:
         else:
             z_vals = z_ccs
         with timed("prove.zip_commit"):
-            data, z_comm = commit_device(pp, z_vals, cfg, self.device)
+            if mesh is None:
+                data, z_comm = commit_device(pp, z_vals, cfg, self.device)
+            elif len(mesh.axis_names) == 2:
+                from .parallel.zip import commit_device_sharded_2d
+
+                data, z_comm = commit_device_sharded_2d(pp, z_vals, cfg, mesh)
+            else:
+                from .parallel.zip import commit_device_sharded
+
+                data, z_comm = commit_device_sharded(pp, z_vals, cfg, mesh)
         with timed("prove.zip_open"):
             pcs_transcript = PcsTranscript()
             open_device(pp, z_vals, z_f, data, r_y, cfg, pcs_transcript)

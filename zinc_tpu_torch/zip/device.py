@@ -1,9 +1,12 @@
-"""Device Zip PCS: RAA encoding, Merkle hashing and opening.
+"""Device Zip PCS: encoding, Merkle hashing and opening.
 
 The port of ``zinc_tpu/zip/device.py``.  The commit runs on the device:
 
     witness ints → K-width words → repeat → gather(σ₁) → prefix sum
     → gather(σ₂) → prefix sum → BLAKE3 leaves → level merges
+
+(the RAA code; the ZipLinearCode encodes by one exact float64 product with
+its dense 0/1 matrix).
 
 The open computes the proximity rows (signed float64 limb products), the
 q₀-weighted field row (K1 + exact sums) and gathers the opened columns and
@@ -22,7 +25,8 @@ from ..fields.config import FieldConfig
 from ..zip.transcript import PcsTranscript
 from ..fields import montgomery as fm
 from ..fields.integers import (
-    combine_rows_signed,
+    combine_acc_to_words,
+    combine_rows_acc,
     cumsum_wrap,
     i64_to_mag8,
     i64_to_words,
@@ -30,7 +34,7 @@ from ..fields.integers import (
     ints_to_words_signed,
     sign_extend,
 )
-from ..fields.montgomery import device_field
+from ..fields.montgomery import carry, device_field
 from ..ops.blake3 import merkle_tree_device
 from ..ops.field_kernels import mont_mul
 from ..poly.device import build_eq_table_device
@@ -62,20 +66,59 @@ def _raa_encode_rows(z_words: torch.Tensor, row_len: int, rep: int, kw32: int, p
     return cumsum_wrap(vec[:, p2], dim=1)
 
 
+def _zlc_dense_matrix(code) -> np.ndarray:
+    """The ZipLinearCode's [A ‖ B] as one dense (cw, row_len) 0/1 float64
+    matrix (``zinc_tpu/zip/device.py:_zlc_dense_matrix``)."""
+    cw, row_len = code.codeword_len(), code.row_len
+    m = np.zeros((cw, row_len), np.float64)
+    half = cw // 2
+    for base, cells in ((0, code.a), (half, code.b)):
+        for r, row in enumerate(cells):
+            for col, coeff in row:
+                m[base + r, col] = float(coeff)
+    return m
+
+
+def _zlc_encode_rows(z_words: torch.Tensor, mat: torch.Tensor, kw32: int) -> torch.Tensor:
+    """ZipLinearCode encode (the port of ``zinc_tpu/zip/device.py:
+    _zlc_encode_rows``): (R·row_len, W) words → (R, cw, kw32) rows of
+    [A·row ‖ B·row].  One float64 product of the 0/1 matrix with the rows'
+    two's-complement u32 words: every partial sum is an integer below
+    row_len·2^32 < 2^53, so it is exact in any order (float64 has no TF32
+    mode), and one carry wraps the word sums to width K."""
+    row_len = mat.shape[1]
+    assert row_len < 1 << 21, "float64 word sums are exact below 2^53"
+    rows = sign_extend(z_words, kw32).reshape(-1, row_len, kw32)
+    lazy = torch.matmul(mat, rows.to(torch.float64)).to(torch.int64)  # (R, cw, kw32)
+    return carry(lazy, kw32)
+
+
+def encode_rows(pp: ZipParams, z_words: torch.Tensor) -> torch.Tensor:
+    """(R·row_len, W) witness words → (R, cw, 2·k_words) codeword rows, by
+    the RAA code or the ZipLinearCode (``zinc_tpu/zip/device.py:146-147``)."""
+    device = z_words.device
+    kw32 = 2 * pp.zt.k_words
+    if hasattr(pp.code, "permutations"):  # RAA
+        p1, p2 = (torch.from_numpy(np.asarray(p, np.int64)).to(device)
+                  for p in pp.code.permutations())
+        return _raa_encode_rows(z_words, pp.code.row_len, pp.code.repetition_factor, kw32, p1, p2)
+    mat = torch.from_numpy(_zlc_dense_matrix(pp.code)).to(device)
+    return _zlc_encode_rows(z_words, mat, kw32)
+
+
+def roots_of(layers) -> list[bytes]:
+    """The rows' 32-byte Merkle roots from the top layer (R, 1, 8)."""
+    top = layers[-1][:, 0, :].cpu().numpy().astype("<u4")
+    return [top[r].tobytes() for r in range(top.shape[0])]
+
+
 def commit_device(pp: ZipParams, z_values, cfg: FieldConfig, device):
     """Device commit; trees and roots byte-identical to ``zip.pcs.commit``."""
-    if not hasattr(pp.code, "permutations"):
-        raise NotImplementedError("the port's device commit covers the RAA code only")
-    row_len = pp.code.row_len
-    kw32 = 2 * pp.zt.k_words
     z_words = _z_words(z_values, pp.zt.n_words, device)
-    assert z_words.shape[0] == pp.num_rows * row_len
-    p1, p2 = (torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in pp.code.permutations())
-    enc = _raa_encode_rows(z_words, row_len, pp.code.repetition_factor, kw32, p1, p2)
+    assert z_words.shape[0] == pp.num_rows * pp.code.row_len
+    enc = encode_rows(pp, z_words)
     layers = merkle_tree_device(enc, pp.zt.k_words)
-    top = layers[-1][:, 0, :].cpu().numpy().astype("<u4")
-    roots = [top[r].tobytes() for r in range(top.shape[0])]
-    return DeviceZipData(fm.narrow(enc), layers), ZipCommitment(roots)
+    return DeviceZipData(fm.narrow(enc), layers), ZipCommitment(roots_of(layers))
 
 
 def _field_row_bytes(words: np.ndarray) -> bytes:
@@ -83,20 +126,35 @@ def _field_row_bytes(words: np.ndarray) -> bytes:
     return np.ascontiguousarray(words[:, ::-1]).astype(">u4").tobytes()
 
 
+def _row_blocks(x, devices) -> list[torch.Tensor]:
+    """A (R, ...) host array or tensor cut into len(devices) row blocks, block
+    s on devices[s]."""
+    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    return [blk.to(dev).contiguous() for blk, dev in zip(x.chunk(len(devices)), devices)]
+
+
 def open_device(
     pp: ZipParams,
     z_values: np.ndarray,  # the polynomial's integer evaluations
     z_f: torch.Tensor,  # (m, n32) field projection of z (Montgomery)
-    data: DeviceZipData,
+    data,  # DeviceZipData, or a list of them: the codeword's row blocks, one per shard
     point: list,
     cfg: FieldConfig,
     transcript: PcsTranscript,
 ) -> None:
-    """Device open; proof bytes identical to ``zip.pcs.open_poly``."""
+    """Device open; proof bytes identical to ``zip.pcs.open_poly``.
+
+    ``data`` as D row blocks (``parallel/zip.py``) opens them where they
+    lie: each block's proximity accumulator and q₀-weighted row sum are
+    formed on its device and added, exactly, on ``z_f``'s device before the
+    one carry and the one reduction mod q; each block's opened columns and
+    siblings are gathered on its device and written in row order."""
+    blocks = data if isinstance(data, (list, tuple)) else [data]
+    devices = [b.enc.device for b in blocks]
     row_len = pp.code.row_len
     cw = pp.code.codeword_len()
     num_rows = pp.num_rows
-    device = z_f.device
+    home = z_f.device
     ctx = device_field(cfg)
 
     # integer writes are not absorbed, so every challenge of the testing
@@ -117,28 +175,30 @@ def open_device(
             e_mag8, e_sign = i64_to_mag8(z_values)
         else:
             e_mag8, e_sign = ints_to_mag8(list(z_values), 8 * pp.zt.n_words)
-        e_mag8 = torch.from_numpy(e_mag8.reshape(num_rows, row_len, -1)).to(device)
-        e_sign = torch.from_numpy(e_sign.reshape(num_rows, row_len)).to(device)
+        e_mag8 = _row_blocks(e_mag8.reshape(num_rows, row_len, -1), devices)
+        e_sign = _row_blocks(e_sign.reshape(num_rows, row_len), devices)
         for coeffs in prox_coeffs:
             c_mag8, c_sign = ints_to_mag8(coeffs, 8 * pp.zt.n_words)
-            combined_rows.append(combine_rows_signed(
-                torch.from_numpy(c_mag8).to(device), torch.from_numpy(c_sign).to(device),
-                e_mag8, e_sign, 2 * pp.zt.m_words,
-            ))
+            accs = [combine_rows_acc(cm, cs, em, es) for cm, cs, em, es in zip(
+                _row_blocks(c_mag8, devices), _row_blocks(c_sign, devices), e_mag8, e_sign)]
+            combined_rows.append(combine_acc_to_words(
+                sum(a.to(home) for a in accs), 2 * pp.zt.m_words))
 
     log_rows = num_rows.bit_length() - 1
     lo = point[len(point) - log_rows :]
     if lo:
-        q0 = build_eq_table_device(cfg, lo, device)  # (R, n32)
-        e_f = z_f.reshape(num_rows, row_len, -1)
-        prod = mont_mul(ctx, q0[:, None, :], e_f)  # (R, C, n32), K1
-        combined_f = fm.mod_reduce_wide(ctx, fm.lazy_sum(ctx, prod, dim=0))
+        q0 = _row_blocks(build_eq_table_device(cfg, lo, home), devices)  # (R, n32)
+        e_f = _row_blocks(z_f.reshape(num_rows, row_len, -1), devices)
+        # K1 on each block, then exact word sums over its rows
+        parts = [fm.widen(mont_mul(ctx, q[:, None, :], e)).sum(dim=0) for q, e in zip(q0, e_f)]
+        combined_f = fm.reduce_lazy(ctx, sum(p.to(home) for p in parts), num_rows)
     else:
         combined_f = z_f
 
     for combined in combined_rows:
         transcript._write(combined.cpu().numpy().astype("<u4").tobytes())
-    write_column_records(data, cols, depth, num_rows, transcript)
+    gathers = [dispatch_column_gathers(b, cols, depth) for b in blocks]
+    write_column_records(*fetch_column_gathers(gathers), depth, transcript)
     write_eval_row(cfg, fm.to_numpy(combined_f), transcript)
 
 
@@ -154,22 +214,30 @@ def dispatch_column_gathers(data: DeviceZipData, cols: np.ndarray, depth: int):
     return vals, sibs
 
 
-def write_column_records(
-    data: DeviceZipData, cols: np.ndarray, depth: int, num_rows: int, transcript: PcsTranscript
-) -> None:
+def fetch_column_gathers(gathers) -> tuple[np.ndarray, list[np.ndarray]]:
+    """The gathers of one or more row blocks, fetched and joined in row
+    order: (vals (n_open, R, kw32) uint32, [sib (n_open, R, 8) uint32])."""
+    fetched = [(v.contiguous().cpu().numpy().view(np.uint32),
+                [s.contiguous().cpu().numpy().astype(np.uint32) for s in sibs])
+               for v, sibs in gathers]
+    vals = np.concatenate([v for v, _ in fetched], axis=1)
+    sibs = [np.concatenate([s[lvl] for _, s in fetched], axis=1)
+            for lvl in range(len(fetched[0][1]))]
+    return vals, sibs
+
+
+def write_column_records(vals: np.ndarray, sibs: list[np.ndarray], depth: int,
+                         transcript: PcsTranscript) -> None:
     """Write the per-column opening records: values, then one path per row."""
-    n_open = cols.shape[0]
-    vals_d, sibs_d = dispatch_column_gathers(data, cols, depth)
-    vals = vals_d.contiguous().cpu().numpy().view(np.uint32)  # (n_open, R, kw32)
+    n_open, num_rows = vals.shape[:2]
     val_bytes = 4 * vals.shape[-1] * num_rows
     rec_bytes = val_bytes + num_rows * (8 + depth * 32)
     records = np.empty((n_open, rec_bytes), dtype=np.uint8)
     records[:, :val_bytes] = vals.astype("<u4").view(np.uint8).reshape(n_open, val_bytes)
     paths = records[:, val_bytes:].reshape(n_open, num_rows, 8 + depth * 32)
     paths[:, :, :8] = np.frombuffer(depth.to_bytes(8, "big"), np.uint8)
-    for lvl, sib_d in enumerate(sibs_d):
-        sib = sib_d.contiguous().cpu().numpy().astype("<u4")  # (n_open, R, 8)
-        paths[:, :, 8 + lvl * 32 : 8 + (lvl + 1) * 32] = sib.view(np.uint8).reshape(
+    for lvl, sib in enumerate(sibs):
+        paths[:, :, 8 + lvl * 32 : 8 + (lvl + 1) * 32] = sib.astype("<u4").view(np.uint8).reshape(
             n_open, num_rows, 32
         )
     transcript._write(records.tobytes())

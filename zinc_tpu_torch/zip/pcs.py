@@ -59,11 +59,15 @@ def setup(poly_size: int, code, zt) -> ZipParams:
     return ZipParams(num_vars=num_vars, num_rows=num_rows, code=code, zt=zt)
 
 
-def _point_to_tensor(num_rows: int, point: list[Fp]):
+def _point_to_tensor(num_rows: int, point: list[Fp], cfg: FieldConfig):
+    """(q_0, q_1): the eq tables of the point's row and column variables.
+    One row has no row variables, and q_0 is [1] (``zinc_tpu/zip/pcs.py:
+    _left_tensor``): the field phase then checks f(v_c) == encode_f(row)[c]
+    for each opened column, the single-row check of ``zip/pcs.py:467-475``."""
     log_rows = num_rows.bit_length() - 1
     hi = point[: len(point) - log_rows]
     lo = point[len(point) - log_rows :]
-    return (build_eq_x_r_vec(lo) if lo else []), (build_eq_x_r_vec(hi) if hi else [])
+    return (build_eq_x_r_vec(lo) if lo else [cfg.one()]), (build_eq_x_r_vec(hi) if hi else [])
 
 
 def _device_checks(pp, cfg, device, mag32, neg, prox, cols, q_0, encoded_f) -> list:
@@ -110,13 +114,11 @@ def verify_poly(
     cw = pp.code.codeword_len()
     kw = pp.zt.k_words
     num_rows = pp.num_rows
-    if num_rows < 2:
-        raise PcsError("the port's verifier covers the multi-row layout only")
 
-    # ---- testing phase ----------------------------------------------------
+    # ---- testing phase (one row: no proximity rows, as open_poly writes) ---
     prox = []
     with timed("verify.prox_read_encode"):
-        for _ in range(pp.code.num_proximity_testing()):
+        for _ in range(pp.code.num_proximity_testing() if num_rows > 1 else 0):
             coeffs = transcript.fs.get_integer_challenges(num_rows, pp.zt.n_words)
             combined_row = transcript.read_integers(row_len, pp.zt.m_words)
             prox.append((coeffs, pp.code.encode(combined_row)))
@@ -149,7 +151,7 @@ def verify_poly(
     # ---- evaluation phase reads -------------------------------------------
     with timed("verify.eval_read_tensor"):
         q_0_combined_row = transcript.read_field_elements(row_len, cfg)
-        q_0, q_1 = _point_to_tensor(num_rows, point)
+        q_0, q_1 = _point_to_tensor(num_rows, point, cfg)
     with timed("verify.field_reencode"):
         encoded_f = pp.code.encode_f(q_0_combined_row, cfg)
         acc = cfg.zero()
