@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port of Zinc on one GPU and check it end to end.
 
     python3 chip_smoke.py            # every phase, as the quick proof that the port runs
+    python3 chip_smoke.py --rank R --world W --port P --log-n L --devices D
+                                     # one rank of phase 9 (started by phase 9 itself)
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
@@ -44,14 +46,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    rounds of each sumcheck on the shards and the commit in 4 row blocks;
    (b) path A at 2^10 on four shards, hashed to PATH_A_SHA256_2P10; (c) a
    2 x 2 mesh of cuda:0 at 2^20 whose roots and proof equal (a)'s; (d) with
-   two cards or more, (a) again on local_mesh() over the real cards.
+   two cards or more, (a) again on local_mesh() over the real cards;
+8. the host backend (pure Python, no kernel) as the oracle: (a) the 2^14
+   R1CS of tests/golden/gen.py, whose host proof hashes to
+   tests/golden/proof_2p14.sha256 and whose device proof has the same
+   bytes, each accepted by the other backend's verifier; (b) a seed drawn
+   at run time and printed: device bytes equal host bytes for the 2^12
+   R1CS at n64 = 4 and 3 and for path A at 2^12, with both walls;
+9. a mesh over two processes (``chip_smoke.py --rank R ...`` children, each
+   with a timeout): two ranks on this card over gloo, each with the local
+   devices [cuda:0, cuda:0] on hierarchical_mesh(2, 2), prove the 2^20 R1CS
+   of phase 3 to its sha256; rank 0 verifies and rejects the tamper; every
+   rank's stage walls, launches and the bytes its all-gathers brought in;
+   with two cards or more, one rank per card over NCCL.
 
 The native runtime runs at its default thread count.  The line before the
 last is a JSON object with one entry per kernel: its launches summed over
 the four 2^20 runs (phase 3, path A at 2^20, path B's timed prove, phase
-7's (a)), each counted from 0, and the numbers of its first phase-1 case;
-the 2^10 runs' launches are logged on their own lines.  The last line is
-the JSON result object.
+7's (a)), phase 8's device proves and phase 9's ranks, each counted from 0,
+and the numbers of its first phase-1 case; the 2^10 runs' launches are
+logged on their own lines.  The last line is the JSON result object.
 """
 
 from __future__ import annotations
@@ -670,6 +684,281 @@ def phase7(log_n: int, single: dict, card="cuda:0") -> dict:
     return a["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the host backend as the oracle
+# ---------------------------------------------------------------------------
+
+PIN_2P14 = ROOT / "tests" / "golden" / "proof_2p14.sha256"
+N14_CASE = (1 << 14, 4321)  # tests/golden/gen.py: N14, SEED14 (the JAX host prover's proof)
+
+
+def _prove_timed(fixture, n64: int, **prover_args):
+    """One prove of ``fixture`` with these ZincProver arguments: (proof,
+    cfg, bytes, wall)."""
+    import zinc_tpu_torch as zt
+
+    ccs, statement, wit = fixture
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(statement.public_input, t, 1, n64)
+    t0 = time.perf_counter()
+    proof = zt.ZincProver(zt.ZipTypes(1), **prover_args).prove(statement, wit, t, ccs, cfg)
+    wall = time.perf_counter() - t0
+    return proof, cfg, zt.serialize_proof(proof, cfg), wall
+
+
+def _check_device_launches(device, launches: dict, must: tuple, must_not: tuple, what: str) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":  # a CPU rehearsal launches no kernel
+        check_launches(launches, must, must_not, what)
+
+
+def phase8(device="cuda") -> list[dict]:
+    """The port's host backend (pure Python, no kernel) as the oracle of the
+    device path: (a) the 2^14 R1CS of tests/golden/gen.py (seed 4321): the
+    host proof hashes to tests/golden/proof_2p14.sha256, the device proof
+    on ``device`` has the same bytes, the host verifier accepts the device
+    proof and the device verifier the host proof; (b) a seed drawn now: the
+    device prover's bytes equal the host prover's for the 2^12 R1CS at n64
+    = 4 and = 3 and for path A at 2^12.  Returns the launches of each device
+    run, each counted from 0."""
+    import zinc_tpu_torch as zt
+    from zinc_tpu_torch.ops import _cuda
+
+    runs = []
+    want_digest, want_len = PIN_2P14.read_text().split()
+    n, seed = N14_CASE
+    ccs, statement, wit, _, _ = setup(n, seed)
+    fixture = (ccs, statement, wit)
+    host, cfg, blob, host_s = _prove_timed(fixture, 4, backend="host")
+    digest = hashlib.sha256(blob).hexdigest()
+    log(f"[oracle 2^14] host prove {host_s:.3f} s, {len(blob)} bytes, sha256 {digest}")
+    if (digest, len(blob)) != (want_digest, int(want_len)):
+        raise AssertionError(f"the host 2^14 proof is not {PIN_2P14.name}'s {want_digest} "
+                             f"({want_len} bytes)")
+    _cuda.reset_launches()
+    dev, _, dev_blob, dev_s = _prove_timed(fixture, 4, device=device)
+    launches = dict(_cuda.LAUNCHES)
+    if dev_blob != blob:
+        raise AssertionError("the device 2^14 proof differs from the host oracle's")
+    _check_device_launches(device, launches, R1CS_KERNELS, GENERIC_KERNELS, "the 2^14 device prove")
+    runs.append(launches)
+    t0 = time.perf_counter()
+    zt.ZincVerifier(zt.ZipTypes(1), backend="host").verify(statement, dev, zt.KeccakTranscript(),
+                                                           ccs, cfg)
+    host_verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zt.ZincVerifier(zt.ZipTypes(1), device=device).verify(statement, host, zt.KeccakTranscript(),
+                                                          ccs, cfg)
+    dev_verify_s = time.perf_counter() - t0
+    log(f"[oracle 2^14] device prove {dev_s:.3f} s on {device}: the same bytes; the host verifier "
+        f"accepted the device proof ({host_verify_s:.3f} s), the device verifier the host proof "
+        f"({dev_verify_s:.3f} s); launches {launches}")
+
+    live = random.SystemRandom().randrange(1 << 31)
+    log(f"[oracle live] seed {live}")
+    cases = [
+        ("R1CS 2^12, n64 = 4", setup(1 << 12, live)[:3], 4, R1CS_KERNELS, GENERIC_KERNELS),
+        ("R1CS 2^12, n64 = 3", setup(1 << 12, live, 3)[:3], 3, R1CS_KERNELS, GENERIC_KERNELS),
+        ("path A 2^12", degree4_fixture(1 << 12, live), 4, PATH_A_KERNELS, ("round_eval_gruen",)),
+    ]
+    for label, fixture, n64, must, must_not in cases:
+        _, _, blob, host_s = _prove_timed(fixture, n64, backend="host")
+        _cuda.reset_launches()
+        _, _, dev_blob, dev_s = _prove_timed(fixture, n64, device=device)
+        launches = dict(_cuda.LAUNCHES)
+        digest = hashlib.sha256(dev_blob).hexdigest()
+        log(f"[oracle live] {label}, seed {live}: host prove {host_s:.3f} s, device prove "
+            f"{dev_s:.3f} s, {len(dev_blob)} bytes, sha256 {digest}; launches {launches}")
+        if dev_blob != blob:
+            raise AssertionError(f"{label}, seed {live}: the device proof differs from the host's")
+        _check_device_launches(device, launches, must, must_not, f"{label} (oracle)")
+        runs.append(launches)
+    log(f"[oracle live] seed {live}: device bytes equal the host oracle's in all three cases")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: a mesh over two processes
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 600  # a rank's whole run: start, fixture, prove, verify
+
+
+def rank_main(argv: list[str]) -> int:
+    """One rank of phase 9 (``chip_smoke.py --rank R ...``): join the group,
+    prove the 2^log_n R1CS (seed 5) on ``hierarchical_mesh`` over the ranks
+    and print its result as one ``[rank-result]`` JSON line; rank 0 also
+    verifies the proof and checks that the V_s[0] + 1 tamper is rejected."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    import zinc_tpu_torch as zt
+    from zinc_tpu_torch.ops import _cuda
+    from zinc_tpu_torch.parallel import hierarchical_mesh, init_distributed
+    from zinc_tpu_torch.timing import STAGES
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--log-n", type=int, required=True)
+    ap.add_argument("--devices", required=True, help="the local devices, comma-separated, or 'own'")
+    ap.add_argument("--backend", default=None)
+    args = ap.parse_args(argv)
+    if not init_distributed(init_method=f"tcp://127.0.0.1:{args.port}", world_size=args.world,
+                            rank=args.rank, backend=args.backend, timeout_s=RANK_TIMEOUT_S / 2):
+        raise SystemExit("init_distributed started no process group")
+    devices = None if args.devices == "own" else args.devices.split(",")
+    mesh = hierarchical_mesh(args.world, None if devices is None else len(devices), devices=devices)
+    ccs, statement, wit, ztypes, _ = setup(1 << args.log_n, 5)
+    dev = mesh.first
+    on_card = dev.type == "cuda"  # a fresh process: its peak memory is the prove's
+    STAGES.clear()
+    _cuda.reset_launches()
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(statement.public_input, t, ztypes.n_words, 4)
+    t0 = time.perf_counter()
+    proof = zt.ZincProver(ztypes, mesh=mesh).prove(statement, wit, t, ccs, cfg)
+    prove_s = time.perf_counter() - t0
+    res = {
+        "rank": args.rank, "backend": mesh.group.backend, "mesh": repr(mesh), "shards": mesh.size,
+        "sha256": hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest(),
+        "prove_s": prove_s, "walls": {k: round(v, 4) for k, v in STAGES.items()},
+        "launches": dict(_cuda.LAUNCHES), "stats": mesh.stats,
+        "collective_calls": mesh.group.calls, "collective_bytes": mesh.group.bytes,
+        "on_card": on_card,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None,
+    }
+    if args.rank == 0:
+        verifier = zt.ZincVerifier(ztypes, device=dev)
+        t0 = time.perf_counter()
+        verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
+        res["verify_s"] = time.perf_counter() - t0
+        proof.spartan_proof.V_s[0] = proof.spartan_proof.V_s[0] + cfg.one()
+        try:
+            verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
+        except zt.ZincError as e:
+            res["tamper"] = f"V_s[0] + 1 rejected ({type(e).__name__})"
+        else:
+            raise AssertionError("the two-process proof's V_s[0] + 1 tamper was accepted")
+    print("[rank-result] " + json.dumps(res), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(label: str, log_n: int, devices: str, backend: str | None, world: int = 2) -> list[dict]:
+    """``world`` ranks of ``rank_main``, each a child process with its output
+    in a temporary file; a rank that exits non-zero or is still running
+    after RANK_TIMEOUT_S fails the phase, and every child is stopped."""
+    import os
+    import tempfile
+
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE")}
+    extra = [] if backend is None else ["--backend", backend]
+    outs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r),
+                               "--world", str(world), "--port", str(port), "--log-n", str(log_n),
+                               "--devices", devices, *extra],
+                              stdout=outs[r], stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[{label}] rank {r} still running after {RANK_TIMEOUT_S} s") \
+                    from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in outs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        for r, text in enumerate(texts):
+            for line in text.splitlines()[-40:]:
+                if not line.startswith("[rank-result]"):
+                    log(f"[{label}] [rank {r}] {line}")
+    results = []
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        found = [ln for ln in text.splitlines() if ln.startswith("[rank-result] ")]
+        if p.returncode != 0 or not found:
+            raise AssertionError(f"[{label}] rank {r} exited {p.returncode} without a result")
+        results.append(json.loads(found[-1][len("[rank-result] "):]))
+    return results
+
+
+def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commit: str) -> None:
+    """Every rank's proof hashes to ``single``'s sha256, rank 0 verified it
+    and saw the tamper rejected, both sumchecks ran sharded down to
+    HOST_TAIL entries a shard, the commit ran in ``commit``, and (on the
+    card) every kernel of the R1CS path launched on every rank."""
+    from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
+
+    shards = results[0]["shards"]
+    want = log_n - (shards.bit_length() - 1) - (HOST_TAIL.bit_length() - 1)
+    for res in results:
+        log(f"[{label}] rank {res['rank']} ({res['backend']}): prove {res['prove_s']:.3f} s, sha256 "
+            f"{res['sha256']}, collectives {res['collective_calls']} all-gathers, "
+            f"{res['collective_bytes']} bytes in from the other ranks, peak device memory "
+            f"{res['peak_gib'] if res['peak_gib'] is None else round(res['peak_gib'], 3)} GiB, "
+            f"{res['stats']}")
+        log(f"[{label}] rank {res['rank']} stage walls (s): {json.dumps(res['walls'])}")
+        log(f"[{label}] rank {res['rank']} launches: {res['launches']}")
+        if res["sha256"] != single["sha256"]:
+            raise AssertionError(f"[{label}] rank {res['rank']}'s proof differs from phase 3's")
+        if res["stats"] != {"sharded_rounds": [want, want], "commit": [commit]}:
+            raise AssertionError(f"[{label}] rank {res['rank']}: the mesh was not used as "
+                                 f"expected: {res['stats']}")
+        if res["on_card"]:
+            check_launches(res["launches"], R1CS_KERNELS, GENERIC_KERNELS,
+                           f"{label} rank {res['rank']}")
+    log(f"[{label}] rank 0 verified in {results[0]['verify_s']:.3f} s, {results[0]['tamper']}; "
+        f"every rank's proof is phase 3's")
+
+
+def phase9(single: dict, log_n: int = 20, devices: str = "cuda:0,cuda:0") -> list[dict]:
+    """A mesh over two processes: (a) two ranks on this one card, each with
+    the local devices ``devices`` on ``hierarchical_mesh(2, 2)``, over gloo
+    (NCCL refuses two ranks on one card): the 2^log_n R1CS (seed 5) hashes
+    to phase 3's sha256 on both ranks, rank 0 verifies it and rejects the
+    tamper, 12 of 20 rounds of each sumcheck run on the 4 shards and the
+    commit in 2 row blocks x 2 column blocks; (b) with two cards or more,
+    one rank per card over NCCL.  Returns each rank's launches."""
+    import torch
+
+    results = run_ranks("2 processes", log_n, devices, "gloo")
+    check_ranks("2 processes", results, single, log_n, "2 row blocks x 2 column blocks")
+    launches = [r["launches"] for r in results]
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards >= 2:
+        results = run_ranks("2 processes, NCCL", log_n, "own", "nccl")
+        check_ranks("2 processes, NCCL", results, single, log_n, "2 row blocks x 1 column blocks")
+        launches += [r["launches"] for r in results]
+    else:
+        log(f"[2 processes, NCCL] not run: torch.cuda.device_count() is {n_cards}, and one rank "
+            f"per card needs two cards or more")
+    return launches
+
+
 def profile_prove(log_n: int) -> None:
     """A second 2^log_n prove under torch.profiler: the device's busy share
     (summed kernel and copy time over the wall) and the kernels that take
@@ -717,10 +1006,13 @@ def main() -> int:
     single = phase3(20)
     profile_prove(20)
     runs = [single["launches"], phase5(20), phase6(20), phase7(20, single)]
-    # the main paths' launches: the four 2^20 runs (each counted from 0)
+    runs += phase8()
+    runs += phase9(single)
+    # the main paths' launches: the four 2^20 runs, the oracle's device runs
+    # and the two-process ranks (each counted from 0)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     if not all(launches.values()):
-        raise AssertionError(f"a kernel launched in none of the 2^20 runs: {launches}")
+        raise AssertionError(f"a kernel launched in none of the main paths' runs: {launches}")
     rows = [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}
@@ -735,4 +1027,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

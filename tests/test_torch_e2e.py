@@ -85,10 +85,12 @@ def test_port_matches_jax_host_prover_192bit_2p8():
 
 def test_entry_points_default_to_the_card():
     """With no ``device`` argument the prover, the verifier and the PCS
-    verifier run on CUDA; without a card they raise rather than fall back
-    to the CPU."""
+    verifier run on CUDA, on the "device" backend; without a card they raise
+    rather than fall back to the CPU (or to the host backend)."""
     for fn in (zt.ZincProver.__init__, zt.ZincVerifier.__init__, pcs.verify_poly):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for fn in (zt.ZincProver.__init__, zt.ZincVerifier.__init__):
+        assert inspect.signature(fn).parameters["backend"].default == "device"
     for cls in (zt.ZincProver, zt.ZincVerifier):
         if torch.cuda.is_available():
             assert cls(zt.ZipTypes(1)).device == torch.device("cuda")
@@ -120,8 +122,10 @@ def test_port_verifier_accepts_golden_and_rejects_tampering():
 
 def test_port_runs_without_jax():
     """The card's situation: jax cannot be imported at all.  A prove and a
-    verify on one device, then the prove on a mesh of 4 CPU shards (the
-    same bytes), load no jax and no module of the JAX package."""
+    verify on one device, the prove on a mesh of 4 CPU shards and a prove
+    and a verify on the host backend (the same bytes), and the import of
+    ``zinc_tpu_torch.parallel`` (no process group), load no jax and no
+    module of the JAX package."""
     script = textwrap.dedent(
         f"""
         import os, random, sys
@@ -141,6 +145,14 @@ def test_port_runs_without_jax():
         sharded = zt.ZincProver(zt.ZipTypes(1), mesh=mesh).prove(st, wit, t, ccs, cfg)
         assert zt.serialize_proof(sharded, cfg) == zt.serialize_proof(proof, cfg)
         assert mesh.stats["commit"] == ["4 row blocks"]
+        t = zt.KeccakTranscript()
+        cfg = zt.draw_random_field(st.public_input, t, 1, 4)
+        host = zt.ZincProver(zt.ZipTypes(1), backend="host").prove(st, wit, t, ccs, cfg)
+        assert zt.serialize_proof(host, cfg) == zt.serialize_proof(proof, cfg)
+        zt.ZincVerifier(zt.ZipTypes(1), backend="host").verify(st, host, zt.KeccakTranscript(), ccs, cfg)
+        import torch.distributed as dist
+        from zinc_tpu_torch.parallel import hierarchical_mesh, init_distributed
+        assert not dist.is_initialized()
         assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
         assert "zinc_tpu" not in sys.modules and _cuda._libs == {{}}
         ref = os.path.join({str(ROOT)!r}, "zinc_tpu") + os.sep

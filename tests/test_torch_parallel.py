@@ -40,7 +40,7 @@ from zinc_tpu_torch.parallel import (
     local_mesh,
 )
 from zinc_tpu_torch.spartan_dev import z_to_device
-from zinc_tpu_torch.sumcheck.executor import make_executor, prove_with_executor
+from zinc_tpu_torch.sumcheck.executor import HOST_TAIL, make_executor, prove_with_executor
 from zinc_tpu_torch.zip import pcs
 from zinc_tpu_torch.zip.code import DefaultLinearCodeSpec, RaaCode, ZipTypes
 from zinc_tpu_torch.zip.device import commit_device, open_device
@@ -66,21 +66,42 @@ def _prove(ccs, statement, wit, mesh, n64=4):
     return proof, cfg
 
 
-@pytest.mark.parametrize("mesh", [cpu_mesh(4), cpu_mesh(8), cpu_mesh_2d(2, 2)],
-                         ids=["4-shards", "8-shards", "2x2"])
-def test_mesh_prove_reproduces_golden_2p10(mesh):
+# (mesh shape, the commit's layout at 2^10: 16 rows of a 128-entry codeword)
+MESH_SHAPES = {
+    "4-shards": ((4,), "4 row blocks"),
+    "8-shards": ((8,), "8 row blocks"),
+    "2x2": ((2, 2), "2 row blocks x 2 column blocks"),
+    "2-shards": ((2,), "2 row blocks"),
+    "6-shards": ((6,), "one device"),
+    "16-shards": ((16,), "16 row blocks"),
+    "1x4": ((1, 4), "1 row blocks x 4 column blocks"),
+    "4x1": ((4, 1), "4 row blocks x 1 column blocks"),
+    "2x4": ((2, 4), "2 row blocks x 4 column blocks"),
+    "4x2": ((4, 2), "4 row blocks x 2 column blocks"),
+    "3x2": ((3, 2), "one device"),
+    "2x3": ((2, 3), "one device"),
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_SHAPES))
+def test_mesh_prove_reproduces_golden_2p10(name):
     """The 2^10 golden proof (the JAX host prover's bytes, which its own
-    sharded prove reproduces: tests/test_parallel.py) from a 1-D mesh of 4
-    and of 8 shards and from a 2 × 2 mesh; the sumchecks ran on the shards
-    (2 rounds each on 4 shards: blocks of 256 and 128 entries, then the
-    hand-over at 64) and the commit was sharded; the verifier accepts."""
+    sharded prove reproduces: tests/test_parallel.py) from 1-D meshes of 2
+    to 16 shards and 2-D meshes of 1 × 4 to 4 × 2; each sumcheck ran its
+    rounds on the shards down to HOST_TAIL entries a shard (2 rounds each on
+    4 shards: blocks of 256 and 128 entries, then the hand-over at 64; none
+    where the shards do not divide 2^10), the commit ran in row blocks, or
+    on one device where the rows or the codeword do not split; the verifier
+    accepts."""
+    shape, commit = MESH_SHAPES[name]
+    mesh = cpu_mesh(shape[0]) if len(shape) == 1 else cpu_mesh_2d(*shape)
     _, ccs, statement, wit = zt.dummy_ccs_of_size(N, random.Random(SEED), int_bits=62)
     proof, cfg = _prove(ccs, statement, wit, mesh)
     assert zt.serialize_proof(proof, cfg) == GOLDEN.read_bytes()
-    rounds = {4: [2, 2], 8: [1, 1]}[mesh.size]
-    assert mesh.stats["sharded_rounds"] == rounds
-    assert mesh.stats["commit"] == [{(4,): "4 row blocks", (8,): "8 row blocks",
-                                     (2, 2): "2 row blocks x 2 column blocks"}[mesh.devices.shape]]
+    d = mesh.size
+    rounds = 0 if N % d else max(0, N.bit_length() - d.bit_length() - HOST_TAIL.bit_length() + 1)
+    assert mesh.stats["sharded_rounds"] == [rounds, rounds]
+    assert mesh.stats["commit"] == [commit]
     zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(statement, proof, zt.KeccakTranscript(),
                                                          ccs, cfg)
 

@@ -12,6 +12,12 @@ entries, the blocks are joined on the mesh's first device, where the
 single-device rounds and the host tail finish.  At 2^20 on 4 shards that is
 12 of the 20 rounds of each sumcheck on the shards.
 
+On a mesh over several processes (``mesh.group``) every process holds the
+whole tables (its setups ran on its first device) and keeps only its own
+shards' blocks; the executor all-gathers each round's residues, and the
+blocks at the hand-over, in rank order, so every process holds the same
+sums before it squeezes.
+
 One executor stands for the reference's tiers: ``ShardedSumcheckExecutor``
 (XLA body), ``ShardedLmSumcheckExecutor`` and
 ``ShardedGruenSumcheckExecutor`` (limb-major MXU layout, Gruen's
@@ -30,15 +36,17 @@ from __future__ import annotations
 from ..fields.config import FieldConfig, Fp
 from ..sumcheck.executor import DeviceSumcheckExecutor, prove_with_executor
 from ..transcript import KeccakTranscript
-from .mesh import Mesh, shard_on_axis
+from .mesh import Mesh
 
 
 def shard_tables(mesh: Mesh, tables):
-    """The tables' D hypercube blocks on the mesh's shards, or the whole
-    tables on the mesh's first device when D does not divide the axis."""
+    """(this process's hypercube blocks on their shards, the mesh's process
+    group), or (the whole tables on the mesh's first device, None) when the
+    mesh's D shards do not divide the axis."""
     if tables.shape[1] % mesh.size:
-        return [tables.to(mesh.first)]
-    return shard_on_axis(mesh.flat, tables, 1)
+        return [tables.to(mesh.first)], None
+    mine = tables.chunk(mesh.size, dim=1)[mesh.shard_offset :]
+    return [b.to(dev).contiguous() for b, dev in zip(mine, mesh.local_flat)], mesh.group
 
 
 class ShardedSumcheckExecutor(DeviceSumcheckExecutor):
@@ -47,7 +55,8 @@ class ShardedSumcheckExecutor(DeviceSumcheckExecutor):
 
     def __init__(self, cfg: FieldConfig, tables, degree: int, comb, mesh: Mesh,
                  eq_beta: list[Fp] | None = None):
-        super().__init__(cfg, shard_tables(mesh, tables), degree, comb, eq_beta)
+        blocks, group = shard_tables(mesh, tables)
+        super().__init__(cfg, blocks, degree, comb, eq_beta, group)
 
 
 def prove_sharded(

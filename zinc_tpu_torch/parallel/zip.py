@@ -15,6 +15,12 @@ roots are merged on the row block's first device.  The open is
 q₀-weighted row before the one carry and the one reduction mod q, and writes
 the blocks' column records in row order.
 
+On a mesh over several processes (``mesh.group``, a ("host", "chip") mesh)
+each process commits its own "host" rows, with the column split on its own
+"chip" devices, so the distributed prefix sums never cross processes; the
+row roots are all-gathered in row order.  The open all-gathers its integer
+accumulators and column records (``zip/device.py``).
+
 When the rows (or, in 2-D, the codeword) do not split evenly, the commit
 runs on the mesh's first device, as the reference's does; ``mesh.stats
 ["commit"]`` notes the layout that ran.  Roots, layers and proof bytes
@@ -52,6 +58,16 @@ def _row_values(z_values, n_blocks: int) -> list:
     return [z_values[s * step : (s + 1) * step] for s in range(n_blocks)]
 
 
+def _all_roots(datas, mesh: Mesh) -> ZipCommitment:
+    """The commitment: the local row blocks' roots and, over several
+    processes, every process's, in row order."""
+    roots = [root for data in datas for root in roots_of(data.layers)]
+    if mesh.group is not None:
+        parts = mesh.group.all_gather_array(np.frombuffer(b"".join(roots), np.uint8))
+        roots = [bytes(p[i : i + 32]) for p in parts for i in range(0, len(p), 32)]
+    return ZipCommitment(roots)
+
+
 def commit_device_sharded(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Mesh):
     """Row-sharded commit over the mesh's shards: (a DeviceZipData per row
     block, the commitment); roots and layers equal ``commit_device``'s."""
@@ -60,12 +76,12 @@ def commit_device_sharded(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Mesh)
         mesh.note("commit", "one device")
         return commit_device(pp, z_values, cfg, mesh.first)
     datas = []
-    for vals, dev in zip(_row_values(z_values, d), mesh.flat):  # every shard queued first
+    mine = _row_values(z_values, d)[mesh.shard_offset :]
+    for vals, dev in zip(mine, mesh.local_flat):  # every shard queued first
         enc = encode_rows(pp, _z_words(vals, pp.zt.n_words, dev))
         datas.append(DeviceZipData(fm.narrow(enc), merkle_tree_device(enc, pp.zt.k_words)))
     mesh.note("commit", f"{d} row blocks")
-    roots = [root for data in datas for root in roots_of(data.layers)]
-    return datas, ZipCommitment(roots)
+    return datas, _all_roots(datas, mesh)
 
 
 def _dist_cumsum(locals_: list[torch.Tensor], kw32: int) -> list[torch.Tensor]:
@@ -103,20 +119,23 @@ def _encode_2d(pp: ZipParams, rows: list[torch.Tensor], chunk: int) -> list[torc
 
 def commit_device_sharded_2d(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Mesh):
     """Commit over an ("r", "c") mesh: rows over "r", each row's codeword
-    over "c".  Returns (a DeviceZipData per "r" block, on that block's first
-    device, the commitment); roots and layers equal ``commit_device``'s."""
+    over "c".  Returns (a DeviceZipData per local "r" block, on that block's
+    first device, the commitment); roots and layers equal
+    ``commit_device``'s."""
     r_size, c_size = mesh.devices.shape
     cw = pp.code.codeword_len()
     chunk = cw // c_size
     if (pp.num_rows % r_size or cw % c_size or chunk & (chunk - 1) or c_size & (c_size - 1)):
         mesh.note("commit", "one device")
         return commit_device(pp, z_values, cfg, mesh.first)
+    row_vals = _row_values(z_values, r_size)
+    local = [(row_vals[r], mesh.devices[r]) for r in mesh.local_rows]
     subtrees = []
-    for vals, devs in zip(_row_values(z_values, r_size), mesh.devices):  # every shard queued first
+    for vals, devs in local:  # every shard queued first
         enc = _encode_2d(pp, [_z_words(vals, pp.zt.n_words, dev) for dev in devs], chunk)
         subtrees.append([(e, merkle_tree_device(e, pp.zt.k_words)) for e in enc])
     datas = []
-    for subs, devs in zip(subtrees, mesh.devices):
+    for subs, (_, devs) in zip(subtrees, local):
         home = devs[0]
         joined = [fetch_global([layers[lvl] for _, layers in subs], 1, home)
                   for lvl in range(len(subs[0][1]))]
@@ -127,6 +146,5 @@ def commit_device_sharded_2d(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Me
         enc = fetch_global([e for e, _ in subs], 1, home)
         datas.append(DeviceZipData(fm.narrow(enc), joined))
     mesh.note("commit", f"{r_size} row blocks x {c_size} column blocks")
-    roots = [root for data in datas for root in roots_of(data.layers)]
-    return datas, ZipCommitment(roots)
+    return datas, _all_roots(datas, mesh)
 

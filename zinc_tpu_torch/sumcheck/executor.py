@@ -34,6 +34,14 @@ in natural order, so the slice is that block's.  Once a block has at most
 (at most HOST_TAIL·D entries a table) and the rounds go on there, the pref
 ratchet unchanged.  With one block, this is the single-device sumcheck.
 
+**Processes.**  With a ``group`` (``parallel.mesh.ProcessGroup``) the
+blocks are this process's, blocks [rank·n, (rank+1)·n) of the D = n·world
+blocks of every process.  Each round all-gathers the blocks' residues as
+CPU int tensors, in rank order, so every process adds the same D residues
+before the host squeezes; the hand-over and the final values all-gather the
+blocks themselves, after which every process runs the same rounds on its
+whole table, with no more collectives.
+
 The kernels run on the tables' device: a CPU tensor takes their plain
 versions, so there is one executor for every platform.
 """
@@ -103,7 +111,7 @@ class DeviceSumcheckExecutor:
     module notes); comb a CombSpec.  With ``eq_beta`` the tables exclude the
     eq MLE, which the combination names as index n_mles (Gruen)."""
 
-    def __init__(self, cfg: FieldConfig, tables, degree: int, comb, eq_beta=None):
+    def __init__(self, cfg: FieldConfig, tables, degree: int, comb, eq_beta=None, group=None):
         self.cfg = cfg
         self.ctx = device_field(cfg)
         if self.ctx.n32 > kernels.MAX_WORDS:
@@ -116,7 +124,10 @@ class DeviceSumcheckExecutor:
         blocks = list(tables) if isinstance(tables, (list, tuple)) else [tables]
         self.blocks = [b.contiguous() for b in blocks]
         self.home = self.blocks[0].device
-        self.size = sum(b.shape[1] for b in self.blocks)  # entries a table
+        self.group = group  # the processes the blocks are spread over, or None
+        world = 1 if group is None else group.world
+        self.n_blocks = len(self.blocks) * world  # blocks over every process
+        self.size = sum(b.shape[1] for b in self.blocks) * world  # entries a table
         self.folds = 0
         self.sharded_rounds = 0  # rounds evaluated on more than one block
         self._host_mles: list[list[Fp]] | None = None
@@ -134,9 +145,16 @@ class DeviceSumcheckExecutor:
     # -- the host tail -------------------------------------------------------
 
     def _joined(self) -> torch.Tensor:
-        if len(self.blocks) == 1:
+        """The whole tables on the first block's device (every process's
+        blocks, in rank order); the blocks are no longer spread after it."""
+        if self.n_blocks == 1:
             return self.blocks[0]
-        return torch.cat([b.to(self.home) for b in self.blocks], dim=1)
+        local = torch.cat([b.to(self.home) for b in self.blocks], dim=1)
+        if self.group is not None:
+            local = torch.cat(self.group.all_gather(local), dim=1).to(self.home)
+            self.group = None
+        self.n_blocks = 1
+        return local
 
     def _demote_to_host(self) -> None:
         buf = self._joined()
@@ -160,6 +178,11 @@ class DeviceSumcheckExecutor:
         self.size //= 2
 
     def _values(self, sums: list, gruen_factor=None) -> list[Fp]:
+        """The round's evaluations from the local blocks' sums and, with a
+        group, every other process's, gathered in rank order."""
+        if self.group is not None:
+            local = torch.stack([s.to(self.home) for s in sums])
+            sums = [s for part in self.group.all_gather(local) for s in part]
         if len(sums) > 1:
             self.sharded_rounds += 1
         return round_values(self.cfg, sums, self.coeffs, gruen_factor)
@@ -167,7 +190,8 @@ class DeviceSumcheckExecutor:
     def _evaluate(self) -> list[Fp]:
         ctx, n_pts = self.ctx, self.degree + 1
         if self.tier == "gruen":
-            parts = self.levels[self.folds + 1].chunk(len(self.blocks))
+            first = 0 if self.group is None else self.group.rank * len(self.blocks)
+            parts = self.levels[self.folds + 1].chunk(self.n_blocks)[first : first + len(self.blocks)]
             sums = [kernels.round_eval_gruen(ctx, b, e.to(b.device), self.rests, n_pts)
                     for b, e in zip(self.blocks, parts)]
             return self._values(sums, (self.pref, self.beta[self.folds]))
@@ -196,7 +220,7 @@ class DeviceSumcheckExecutor:
         if self.size <= HOST_TAIL:
             self._demote_to_host()
             return self._host_round()
-        if len(self.blocks) > 1 and self.blocks[0].shape[1] <= HOST_TAIL:
+        if self.n_blocks > 1 and self.blocks[0].shape[1] <= HOST_TAIL:
             self.blocks = [self._joined()]  # the hand-over to the first block's device
         return self._evaluate()
 

@@ -126,11 +126,21 @@ def _field_row_bytes(words: np.ndarray) -> bytes:
     return np.ascontiguousarray(words[:, ::-1]).astype(">u4").tobytes()
 
 
-def _row_blocks(x, devices) -> list[torch.Tensor]:
-    """A (R, ...) host array or tensor cut into len(devices) row blocks, block
-    s on devices[s]."""
+def _row_blocks(x, devices, group=None) -> list[torch.Tensor]:
+    """A (R, ...) host array or tensor cut into one row block per shard, of
+    every process when a ``group`` is given; this process's len(devices)
+    blocks, block s on devices[s]."""
     x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
-    return [blk.to(dev).contiguous() for blk, dev in zip(x.chunk(len(devices)), devices)]
+    world, rank = (1, 0) if group is None else (group.world, group.rank)
+    mine = x.chunk(len(devices) * world)[rank * len(devices) : (rank + 1) * len(devices)]
+    return [blk.to(dev).contiguous() for blk, dev in zip(mine, devices)]
+
+
+def _summed(parts, home, group) -> torch.Tensor:
+    """Σ of integer tensors, on ``home``: the local parts, then (with a
+    group) every process's sum, exactly, as int64."""
+    local = sum(p.to(home) for p in parts)
+    return local if group is None else sum(group.all_gather(local)).to(home)
 
 
 def open_device(
@@ -141,6 +151,7 @@ def open_device(
     point: list,
     cfg: FieldConfig,
     transcript: PcsTranscript,
+    group=None,  # parallel.mesh.ProcessGroup when the row blocks are spread over processes
 ) -> None:
     """Device open; proof bytes identical to ``zip.pcs.open_poly``.
 
@@ -148,7 +159,12 @@ def open_device(
     lie: each block's proximity accumulator and q₀-weighted row sum are
     formed on its device and added, exactly, on ``z_f``'s device before the
     one carry and the one reduction mod q; each block's opened columns and
-    siblings are gathered on its device and written in row order."""
+    siblings are gathered on its device and written in row order.  With a
+    ``group`` the blocks are this process's share of every process's: the
+    challenges are all squeezed before any write, so every process opens
+    the same columns; the int64 accumulators and row sums and the column
+    records are all-gathered in rank order, and every process writes the
+    same bytes."""
     blocks = data if isinstance(data, (list, tuple)) else [data]
     devices = [b.enc.device for b in blocks]
     row_len = pp.code.row_len
@@ -175,30 +191,36 @@ def open_device(
             e_mag8, e_sign = i64_to_mag8(z_values)
         else:
             e_mag8, e_sign = ints_to_mag8(list(z_values), 8 * pp.zt.n_words)
-        e_mag8 = _row_blocks(e_mag8.reshape(num_rows, row_len, -1), devices)
-        e_sign = _row_blocks(e_sign.reshape(num_rows, row_len), devices)
+        e_mag8 = _row_blocks(e_mag8.reshape(num_rows, row_len, -1), devices, group)
+        e_sign = _row_blocks(e_sign.reshape(num_rows, row_len), devices, group)
         for coeffs in prox_coeffs:
             c_mag8, c_sign = ints_to_mag8(coeffs, 8 * pp.zt.n_words)
             accs = [combine_rows_acc(cm, cs, em, es) for cm, cs, em, es in zip(
-                _row_blocks(c_mag8, devices), _row_blocks(c_sign, devices), e_mag8, e_sign)]
-            combined_rows.append(combine_acc_to_words(
-                sum(a.to(home) for a in accs), 2 * pp.zt.m_words))
+                _row_blocks(c_mag8, devices, group), _row_blocks(c_sign, devices, group),
+                e_mag8, e_sign)]
+            combined_rows.append(combine_acc_to_words(_summed(accs, home, group),
+                                                      2 * pp.zt.m_words))
 
     log_rows = num_rows.bit_length() - 1
     lo = point[len(point) - log_rows :]
     if lo:
-        q0 = _row_blocks(build_eq_table_device(cfg, lo, home), devices)  # (R, n32)
-        e_f = _row_blocks(z_f.reshape(num_rows, row_len, -1), devices)
+        q0 = _row_blocks(build_eq_table_device(cfg, lo, home), devices, group)  # (R, n32)
+        e_f = _row_blocks(z_f.reshape(num_rows, row_len, -1), devices, group)
         # K1 on each block, then exact word sums over its rows
         parts = [fm.widen(mont_mul(ctx, q[:, None, :], e)).sum(dim=0) for q, e in zip(q0, e_f)]
-        combined_f = fm.reduce_lazy(ctx, sum(p.to(home) for p in parts), num_rows)
+        combined_f = fm.reduce_lazy(ctx, _summed(parts, home, group), num_rows)
     else:
         combined_f = z_f
 
     for combined in combined_rows:
         transcript._write(combined.cpu().numpy().astype("<u4").tobytes())
     gathers = [dispatch_column_gathers(b, cols, depth) for b in blocks]
-    write_column_records(*fetch_column_gathers(gathers), depth, transcript)
+    vals, sibs = fetch_column_gathers(gathers)
+    if group is not None:  # every process's rows, in row order
+        vals = np.concatenate(group.all_gather_array(vals), axis=1)
+        if depth:
+            sibs = list(np.concatenate(group.all_gather_array(np.stack(sibs)), axis=2))
+    write_column_records(vals, sibs, depth, transcript)
     write_eval_row(cfg, fm.to_numpy(combined_f), transcript)
 
 

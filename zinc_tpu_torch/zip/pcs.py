@@ -1,10 +1,14 @@
-"""Zip PCS parameters, commitment and verifier (the device checks in torch).
+"""Zip PCS: parameters, the host commit and open, and the verifier.
 
-The port of ``zinc_tpu/zip/pcs.py:191-475``.  The verifier squeezes every
-column index first, parses all opened records in one numpy pass, folds the
-Merkle paths with the port's native runtime (``csrc/zinc_native.cpp``,
-loaded by ``native.py``) and runs the two proximity checks on the device,
-in a background thread that the host joins before it raises.
+The port of ``zinc_tpu/zip/pcs.py``.  ``commit``, ``commit_no_merkle``,
+``batch_commit``, ``open_poly`` and ``batch_open`` are the host backend's
+PCS in Python ints (``zinc_tpu/zip/pcs.py:53-189``): the oracle that the
+device commit and open (``zip/device.py``) are held to.  The verifier
+squeezes every column index first, parses all opened records in one numpy
+pass, folds the Merkle paths with the port's native runtime
+(``csrc/zinc_native.cpp``, loaded by ``native.py``) and runs the two
+proximity checks on ``device``, in a background thread that the host joins
+before it raises.
 """
 
 from __future__ import annotations
@@ -18,8 +22,8 @@ import torch
 from ..fields.config import FieldConfig, Fp
 from ..hashing.blake3 import blake3
 from ..native import blake3_batch, merkle_fold_batch_strided
-from ..poly.mle import build_eq_x_r_vec
-from ..zip.merkle import verify_merkle_path
+from ..poly.mle import DenseMleZ, build_eq_x_r_vec
+from ..zip.merkle import MerkleTree, int_to_leaf_bytes, verify_merkle_path
 from ..zip.transcript import PcsTranscript
 from ..fields import montgomery as fm
 from ..fields.integers import combine_rows_signed, ints_to_mag8, ints_to_words_signed
@@ -47,6 +51,18 @@ class ZipParams:
 
 
 @dataclass
+class ZipCommitmentData:
+    """Prover-side data of the host commit: encoded rows (flat, row-major)
+    and one Merkle tree per row."""
+
+    rows: list  # list[int], num_rows * codeword_len entries (width K)
+    trees: list  # list[MerkleTree]
+
+    def roots(self) -> list[bytes]:
+        return [t.root for t in self.trees]
+
+
+@dataclass
 class ZipCommitment:
     roots: list  # list[bytes]
 
@@ -59,15 +75,120 @@ def setup(poly_size: int, code, zt) -> ZipParams:
     return ZipParams(num_vars=num_vars, num_rows=num_rows, code=code, zt=zt)
 
 
+def _validate(tag: str, pp: ZipParams, poly: DenseMleZ | None, points: list) -> None:
+    if poly is not None and pp.num_vars < poly.num_vars:
+        raise PcsError(f"too many variates to {tag} ({pp.num_vars} < {poly.num_vars})")
+    nv = poly.num_vars if poly is not None else (len(points[0]) if points else 0)
+    for p in points:
+        if len(p) != nv:
+            raise PcsError(f"invalid point length {len(p)} != {nv}")
+
+
+def commit(pp: ZipParams, poly: DenseMleZ) -> tuple[ZipCommitmentData, ZipCommitment]:
+    """The host commit: each row RAA-encoded (or by the ZipLinearCode) and
+    one BLAKE3 Merkle tree per row; the commitment is the rows' roots."""
+    _validate("commit", pp, poly, [])
+    row_len = pp.code.row_len
+    codeword_len = pp.code.codeword_len()
+    expected = pp.num_rows * row_len
+    assert len(poly.evaluations) == expected, (
+        f"polynomial has {len(poly.evaluations)} evaluations, expected {expected}"
+    )
+    depth = max((codeword_len - 1).bit_length(), 0)
+
+    rows: list[int] = []
+    trees: list[MerkleTree] = []
+    kw = pp.zt.k_words
+    for r in range(pp.num_rows):
+        codeword = pp.code.encode(poly.evaluations[r * row_len : (r + 1) * row_len])
+        rows.extend(codeword)
+        trees.append(MerkleTree.from_leaves(depth, [int_to_leaf_bytes(v, kw) for v in codeword]))
+    return ZipCommitmentData(rows, trees), ZipCommitment([t.root for t in trees])
+
+
+def commit_no_merkle(pp: ZipParams, poly: DenseMleZ) -> tuple[ZipCommitmentData, ZipCommitment]:
+    """Encode-only commit: the rows, no trees and no roots (the reference's
+    benchmark variant)."""
+    _validate("commit", pp, poly, [])
+    row_len = pp.code.row_len
+    rows: list[int] = []
+    for r in range(pp.num_rows):
+        rows.extend(pp.code.encode(poly.evaluations[r * row_len : (r + 1) * row_len]))
+    return ZipCommitmentData(rows, []), ZipCommitment([])
+
+
+def batch_commit(pp: ZipParams, polys: list[DenseMleZ]):
+    return [commit(pp, p) for p in polys]
+
+
+def _left_tensor(num_rows: int, point: list[Fp], cfg: FieldConfig) -> list[Fp]:
+    """q_0: the eq table of the point's last log2(num_rows) coordinates, the
+    row variables; [1] for one row."""
+    log_rows = num_rows.bit_length() - 1
+    lo = point[len(point) - log_rows :]
+    return build_eq_x_r_vec(lo) if lo else [cfg.one()]
+
+
 def _point_to_tensor(num_rows: int, point: list[Fp], cfg: FieldConfig):
     """(q_0, q_1): the eq tables of the point's row and column variables.
-    One row has no row variables, and q_0 is [1] (``zinc_tpu/zip/pcs.py:
-    _left_tensor``): the field phase then checks f(v_c) == encode_f(row)[c]
-    for each opened column, the single-row check of ``zip/pcs.py:467-475``."""
+    One row has no row variables, and q_0 is [1]: the field phase then
+    checks f(v_c) == encode_f(row)[c] for each opened column, the single-row
+    check of ``zinc_tpu/zip/pcs.py:467-475``."""
     log_rows = num_rows.bit_length() - 1
     hi = point[: len(point) - log_rows]
-    lo = point[len(point) - log_rows :]
-    return (build_eq_x_r_vec(lo) if lo else [cfg.one()]), (build_eq_x_r_vec(hi) if hi else [])
+    return _left_tensor(num_rows, point, cfg), (build_eq_x_r_vec(hi) if hi else [])
+
+
+def open_poly(
+    pp: ZipParams,
+    poly: DenseMleZ,
+    data: ZipCommitmentData,
+    point: list[Fp],
+    cfg: FieldConfig,
+    transcript: PcsTranscript,
+) -> None:
+    """The host open: the proximity rows, the 1000 column records, then the
+    q_0-weighted field row; the bytes ``zip/device.py:open_device`` writes."""
+    _validate("open", pp, poly, [point])
+    row_len = pp.code.row_len
+    codeword_len = pp.code.codeword_len()
+
+    # ---- testing phase ----------------------------------------------------
+    if pp.num_rows > 1:
+        for _ in range(pp.code.num_proximity_testing()):
+            coeffs = transcript.fs.get_integer_challenges(pp.num_rows, pp.zt.n_words)
+            combined = [
+                sum(coeffs[r] * poly.evaluations[r * row_len + c] for r in range(pp.num_rows))
+                for c in range(row_len)
+            ]
+            transcript.write_integers(combined, pp.zt.m_words)
+
+    for _ in range(pp.code.num_column_opening()):
+        column = transcript.squeeze_challenge_idx(cfg, codeword_len)
+        transcript.write_integers(
+            [data.rows[r * codeword_len + column] for r in range(pp.num_rows)], pp.zt.k_words
+        )
+        for tree in data.trees:
+            transcript.write_merkle_path(tree.path(column))
+
+    # ---- evaluation phase -------------------------------------------------
+    q_0 = _left_tensor(pp.num_rows, point, cfg)
+    evaluations_f = [cfg.fp(v) for v in poly.evaluations]
+    if pp.num_rows > 1:
+        combined_row = []
+        for c in range(row_len):
+            acc = cfg.zero()
+            for r in range(pp.num_rows):
+                acc = acc + q_0[r] * evaluations_f[r * row_len + c]
+            combined_row.append(acc)
+    else:
+        combined_row = evaluations_f
+    transcript.write_field_elements(combined_row)
+
+
+def batch_open(pp, polys, datas, points, cfg, transcript):
+    for poly, data, point in zip(polys, datas, points):
+        open_poly(pp, poly, data, point, cfg, transcript)
 
 
 def _device_checks(pp, cfg, device, mag32, neg, prox, cols, q_0, encoded_f) -> list:
@@ -207,3 +328,8 @@ def verify_poly(
         for ok, msg in done["checks"]:
             if not ok:
                 raise PcsError(msg)
+
+
+def batch_verify(pp, comms, points, evals, transcript, cfg, device="cuda"):
+    for comm, point, ev in zip(comms, points, evals):
+        verify_poly(pp, comm, point, ev, transcript, cfg, device)
