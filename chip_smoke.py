@@ -58,14 +58,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    devices [cuda:0, cuda:0] on hierarchical_mesh(2, 2), prove the 2^20 R1CS
    of phase 3 to its sha256; rank 0 verifies and rejects the tamper; every
    rank's stage walls, launches and the bytes its all-gathers brought in;
-   with two cards or more, one rank per card over NCCL.
+   with two cards or more, one rank per card over NCCL;
+10. the bench mirrors (zinc_tpu_torch/benches/) on the card, each through
+   its ``main``: bench_round (a 2^20 round of bench.py's metric, K4 then
+   K2 as native/cpu_baseline.cpp runs it, held exactly equal to its plain
+   versions before it is timed, with vs_baseline from
+   native/cpu_baseline.cpp built and run on this host), bench_field at 2^20,
+   bench_prime, bench_spartan and bench_zip at 2^12, 2^14 and 2^16; their
+   JSON lines print on lines of their own, and each must print every metric
+   it owes.  bench_round's launches are logged on their own line.
 
 The native runtime runs at its default thread count.  The line before the
 last is a JSON object with one entry per kernel: its launches summed over
 the four 2^20 runs (phase 3, path A at 2^20, path B's timed prove, phase
 7's (a)), phase 8's device proves and phase 9's ranks, each counted from 0,
-and the numbers of its first phase-1 case; the 2^10 runs' launches are
-logged on their own lines.  The last line is the JSON result object.
+and the numbers of its first phase-1 case; the 2^10 runs' and phase 10's
+launches are logged on their own lines.  The last line is the JSON result
+object.
 """
 
 from __future__ import annotations
@@ -163,14 +172,10 @@ def phase0() -> dict:
     maximum SM clock (the bounds' clock)."""
     import torch
 
-    from zinc_tpu_torch.benches.bench_kernels import card
+    from zinc_tpu_torch.benches.bench_kernels import card, smi_row
     from zinc_tpu_torch.ops import _cuda
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(smi_row("cuda:0", "name,power.limit"))
     info = card()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}, "
         f"max SM clock {info['max_sm_mhz']:.0f} MHz")
@@ -959,6 +964,59 @@ def phase9(single: dict, log_n: int = 20, devices: str = "cuda:0,cuda:0") -> lis
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the bench mirrors
+# ---------------------------------------------------------------------------
+
+ZIP_STAGES = ("encode_rows", "merkle_root", "commit_no_merkle", "commit", "open", "verify",
+              "proof_bytes")
+
+
+def bench_runs(device: str, round_log_n: int = 20, field_log_n: int = 20,
+               sizes=(12, 14, 16)) -> list[tuple[str, list[str], list[str]]]:
+    """(mirror, arguments, the metric names it owes) of each bench mirror:
+    the JAX benches' names at these sizes (tests/test_torch_coverage.py holds
+    them to the JAX benches' sources); K1's row, on the card only, says
+    ``cuda`` where the JAX one says ``pallas``."""
+    k1 = ("mont_mul_cuda",) if device.startswith("cuda") else ()
+    return [
+        ("bench_round", [str(round_log_n), device], ["spartan_sumcheck_round_2p20_256bit"]),
+        ("bench_field", [str(field_log_n), device],
+         [f"host_fp_{op}_128bit" for op in ("mul", "add", "div", "neg")]
+         + [f"device_{op}_2p{field_log_n}" for op in ("mont_add", "mont_mul") + k1]),
+        ("bench_prime", [], ["prime_gen_256bit"]),
+        ("bench_spartan", [*map(str, sizes), device],
+         [f"spartan_{what}_2p{n}" for n in sizes for what in ("prove", "verify")]),
+        ("bench_zip", [*map(str, sizes), device],
+         [f"zip_{stage}_2p{n}" for n in sizes for stage in ZIP_STAGES]),
+    ]
+
+
+def phase10(device: str = "cuda", **sizes) -> None:
+    """Each bench mirror through its ``main`` (which prints the device line
+    and its JSON lines); each must print every metric it owes, and
+    bench_round's round (held equal to its plain versions inside the bench)
+    must have launched K2 and K4 on the card."""
+    import importlib
+
+    for name, argv, owed in bench_runs(device, **sizes):
+        mod = importlib.import_module(f"zinc_tpu_torch.benches.{name}")
+        t0 = time.perf_counter()
+        records = mod.main([name, *argv])
+        missing = sorted(set(owed) - {r["metric"] for r in records})
+        log(f"[bench] {name} {' '.join(argv)}: {len(records)} metric lines in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if missing:
+            raise AssertionError(f"{name} did not print {missing}")
+        if name == "bench_round":
+            rec = records[0]
+            log(f"[bench_round] launches of the checked and timed rounds {rec['launches']}")
+            if device.startswith("cuda") and not (rec["launches"].get("fold")
+                                                  and rec["launches"].get("round_eval_gruen")):
+                raise AssertionError(f"bench_round launched {rec['launches']}, not fold and "
+                                     "round_eval_gruen")
+
+
 def profile_prove(log_n: int) -> None:
     """A second 2^log_n prove under torch.profiler: the device's busy share
     (summed kernel and copy time over the wall) and the kernels that take
@@ -1008,6 +1066,7 @@ def main() -> int:
     runs = [single["launches"], phase5(20), phase6(20), phase7(20, single)]
     runs += phase8()
     runs += phase9(single)
+    phase10()
     # the main paths' launches: the four 2^20 runs, the oracle's device runs
     # and the two-process ranks (each counted from 0)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}

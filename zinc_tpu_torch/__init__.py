@@ -12,16 +12,19 @@ Importing the package compiles and loads nothing: the CUDA kernels are built
 at their first call on a CUDA tensor.
 """
 
-from .ccs import CCS, Statement, Witness, dummy_ccs_of_size
+from .ccs import CCS, CSError, Statement, Witness, dummy_ccs_of_size
 from .fields.config import FieldConfig, Fp
 from .prime import draw_random_field
 from .transcript import KeccakTranscript
-from .zip.code import ZipTypes
+from .zip.code import DefaultLinearCodeSpec, LinearCodeSpec, RaaCode, ZipLinearCode, ZipTypes
 from .serialize import deserialize_proof, serialize_proof
 from .zinc import ZincError, ZincProof, ZincProver, ZincVerifier
 
+__version__ = "0.1.0"
+
 __all__ = [
     "CCS",
+    "CSError",
     "Statement",
     "Witness",
     "dummy_ccs_of_size",
@@ -29,6 +32,10 @@ __all__ = [
     "Fp",
     "draw_random_field",
     "KeccakTranscript",
+    "DefaultLinearCodeSpec",
+    "LinearCodeSpec",
+    "RaaCode",
+    "ZipLinearCode",
     "ZipTypes",
     "serialize_proof",
     "deserialize_proof",

@@ -37,12 +37,24 @@ SMS = 132
 IMAD_SLOTS_PER_CLOCK = 64  # per SM, compute capability 9.0
 
 
-def card() -> dict:
-    """Name, power limit and maximum SM clock of card 0 (nvidia-smi)."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader,nounits"],
+def smi_row(device, query: str, units: bool = True) -> str:
+    """The torch device's row of ``nvidia-smi --query-gpu=<query>``, chosen
+    by the card's UUID: nvidia-smi lists every card of the host, whatever
+    ``CUDA_VISIBLE_DEVICES`` hides, so a list position may name another."""
+    import torch
+
+    uuid = torch.cuda.get_device_properties(torch.device(device)).uuid
+    return subprocess.run(
+        ["nvidia-smi", f"--id=GPU-{uuid}", f"--query-gpu={query}",
+         "--format=csv,noheader" + ("" if units else ",nounits")],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip()
+
+
+def card(device="cuda") -> dict:
+    """Name, power limit and maximum SM clock of the torch device's card
+    (nvidia-smi)."""
+    out = smi_row(device, "name,power.limit,clocks.max.sm", units=False)
     name, power, clock = (x.strip() for x in out.split(","))
     return {"name": name, "power_limit_w": float(power), "max_sm_mhz": float(clock)}
 

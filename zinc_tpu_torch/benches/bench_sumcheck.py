@@ -6,16 +6,16 @@ by the host verifier.
 
     python -m zinc_tpu_torch.benches.bench_sumcheck [nv] [device]   # 20, cuda
 
-Prints the device, then the JAX bench's two JSON metric lines.  The tables
-are random residues made from a seed with numpy; the claimed sum is the
-plain PyTorch product and lazy sum on the device, never the kernels.  As in
-the JAX bench, the timed prove is the second one (the first pays the kernel
-build), and the timed verify the second.
+Prints the device (the card's name and power limit, or ``cpu``), then the
+JAX bench's two JSON metric lines.  The tables are random residues made
+from a seed with numpy; the claimed sum is the plain PyTorch product and
+lazy sum on the device, never the kernels.  As in the JAX bench, the timed
+prove is the second one (the first pays the kernel build), and the timed
+verify the second.
 """
 
 from __future__ import annotations
 
-import json
 import sys
 import time
 
@@ -30,6 +30,7 @@ from ..fields.montgomery import device_field
 from ..ops import _cuda
 from ..poly.device import limbs_to_fp
 from ..sumcheck.executor import make_executor, prove_with_executor
+from ._common import device_line, emit, parse_one
 
 N_FACTORS = 7
 Q = (1 << 255) + 95
@@ -99,18 +100,12 @@ def run(nv: int, device, seed: int = 0) -> dict:
             "launches": launches}
 
 
-def main(argv: list[str]) -> None:
-    nv = int(argv[1]) if len(argv) > 1 else 20
-    device = argv[2] if len(argv) > 2 else "cuda"
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass `cpu` as the device to run the plain versions")
+def main(argv: list[str]) -> list[dict]:
+    nv, device = parse_one(argv[1:], 20, 20)
+    print(device_line(device), flush=True)
     res = run(nv, device)
-    name = torch.cuda.get_device_name(0) if torch.device(device).type == "cuda" else "cpu"
-    print(f"device: {name}")
-    print(json.dumps({"metric": f"sumcheck_prove_{nv}v_{N_FACTORS}prod",
-                      "value": round(res["prove_s"] * 1e3, 1), "unit": "ms"}))
-    print(json.dumps({"metric": f"sumcheck_verify_{nv}v_{N_FACTORS}prod",
-                      "value": round(res["verify_s"] * 1e3, 1), "unit": "ms"}))
+    return [emit(f"sumcheck_prove_{nv}v_{N_FACTORS}prod", res["prove_s"] * 1e3, "ms"),
+            emit(f"sumcheck_verify_{nv}v_{N_FACTORS}prod", res["verify_s"] * 1e3, "ms")]
 
 
 if __name__ == "__main__":
