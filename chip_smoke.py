@@ -20,7 +20,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    3) and its bound (zinc_tpu_torch/benches/bench_kernels.py); then the
    generic eval against K3 and K4 at their shapes, equal sums and both
    device-only times; then fold_round_eval at each of the 13 round shapes of
-   paths A and B, with the sums over the rounds;
+   paths A and B, with the sums over the rounds; fold and fold_round_eval
+   also with r on the card (the device-resident Fiat-Shamir loop's form);
+1b. fs_round (the device-resident Fiat-Shamir round, csrc/fs.cu) against
+   its plain version, equal in every word it writes, at the shapes the
+   paths give it (bench_kernels.fs_cases: the R1CS sumchecks on one block
+   and on four, path A's generic comb, sponge positions that cross a
+   block) at 8, 6 and 16 words, with its device-only time beside the launch
+   floor; fold and fold_round_eval with r on the card equal to their
+   host-word forms;
 2. 2^10: the port's prove reproduces tests/golden/proof_2p10.bin byte for
    byte through the kernels, its verifier accepts it, and both tamper
    probes are rejected; every kernel of the dummy-R1CS path launched, and
@@ -29,21 +37,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    host prover's bytes, pinned by tests/test_torch_e2e.py) and verifies;
 3. 2^20 (seed 5, the production configuration): one prove and one verify
    through ZincProver/ZincVerifier, with the launch counts of that run,
-   the stage walls, the proof size and the peak device memory; the
-   V_s[0] + 1 tamper is rejected;
+   the stage walls, the proof size and the peak device memory; the proof
+   hashes to R1CS_SHA256_2P20, each sumcheck ran the device-FS driver and
+   fetched from the card once, and the V_s[0] + 1 tamper is rejected;
+3b. both sumcheck drivers on the same device tables (compare_drivers):
+   Spartan's sumchecks of the R1CS at 2^12, 2^14, 2^16 and 2^20 and of
+   path A at 2^20, from clones of one transcript, in turns: equal proofs
+   and transcript states, the walls of spartan.sumcheck1/2 under each,
+   the host fetches of each sumcheck (1 for device FS) and the device-FS
+   driver's steps; its enqueue loop runs under
+   torch.cuda.set_sync_debug_mode("error");
 4. a second 2^20 prove under torch.profiler: the device's busy share and
    the kernels that take the most device time;
 5. path A, a degree-4 CCS outside K3's scope (z⁴ − z³·z = 0, five
    matrices, sumcheck 1 on the generic tier): the 2^10 proof hashes to
    PATH_A_SHA256_2P10 (the JAX host prover's proof, pinned by
    tests/test_torch_generic.py), and at 2^20 (seed 5) one prove and one
-   verify, with walls, launches and peak memory; the V_s tamper is rejected;
+   verify, with walls, launches and peak memory, the proof hashed to
+   PATH_A_SHA256_2P20, one fetch a sumcheck; the V_s tamper is rejected;
 6. path B, zinc_tpu_torch.benches.bench_sumcheck at 2^20 (7 factors,
-   degree 7): prove and verify times, accepted by the host verifier;
+   degree 7), on the per-round executor as its JAX namesake: prove and
+   verify times, accepted by the host verifier;
 7. the sharded prove (zinc_tpu_torch.parallel) on the card: (a) the 2^20
    R1CS on Mesh([cuda:0] * 4), byte-identical to phase 3's proof, verified,
    the tamper rejected, with walls, launches, peak memory, 12 of the 20
-   rounds of each sumcheck on the shards and the commit in 4 row blocks;
+   rounds of each sumcheck on the shards (the sharded device-FS driver,
+   one fetch a sumcheck) and the commit in 4 row blocks;
    (b) path A at 2^10 on four shards, hashed to PATH_A_SHA256_2P10; (c) a
    2 x 2 mesh of cuda:0 at 2^20 whose roots and proof equal (a)'s; (d) with
    two cards or more, (a) again on local_mesh() over the real cards;
@@ -56,7 +75,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 9. a mesh over two processes (``chip_smoke.py --rank R ...`` children, each
    with a timeout): two ranks on this card over gloo, each with the local
    devices [cuda:0, cuda:0] on hierarchical_mesh(2, 2), prove the 2^20 R1CS
-   of phase 3 to its sha256; rank 0 verifies and rejects the tamper; every
+   of phase 3 to its sha256 on the per-round executor (a mesh over
+   processes gathers each round's sums over gloo); rank 0 verifies and
+   rejects the tamper; every
    rank's stage walls, launches and the bytes its all-gathers brought in;
    with two cards or more, one rank per card over NCCL;
 10. the bench mirrors (zinc_tpu_torch/benches/) on the card, each through
@@ -72,8 +93,9 @@ The native runtime runs at its default thread count.  The line before the
 last is a JSON object with one entry per kernel: its launches summed over
 the four 2^20 runs (phase 3, path A at 2^20, path B's timed prove, phase
 7's (a)), phase 8's device proves and phase 9's ranks, each counted from 0,
-and the numbers of its first phase-1 case; the 2^10 runs' and phase 10's
-launches are logged on their own lines.  The last line is the JSON result
+and the numbers of its first phase-1 case (fs_round's: its first phase-1b
+case, whose bound is written beside the launch floor); the 2^10 runs',
+phase 3b's and phase 10's launches are logged on their own lines.  The last line is the JSON result
 object.
 """
 
@@ -109,12 +131,18 @@ KERNELS = {
                            "zinc_tpu/sumcheck/pallas_exec.py:133 (K9 _eval_fixed)"),
     "fold_round_eval": ("cuda", "zinc_tpu_torch/csrc/generic.cu",
                         "zinc_tpu/sumcheck/pallas_exec.py:192 (K10 _fold_eval_fixed)"),
+    "fs_round": ("cuda", "zinc_tpu_torch/csrc/fs.cu",
+                 "zinc_tpu/sumcheck/device_fs.py:85 (_make_fs_step, the XLA Fiat-Shamir step); "
+                 "zinc_tpu/ops/keccak_kernel.py:64 (keccak_f1600_device), :183 (absorb_dyn), "
+                 ":206 (digest_dyn)"),
 }
 # the kernels each path must launch (and the dummy R1CS none of the generic tier)
-R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen")
+R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round")
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
-PATH_A_KERNELS = ("mont_mul", "fold", "round_eval") + GENERIC_KERNELS
-PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS
+PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS
+PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS  # path B's bench keeps the per-round executor
+# a mesh over processes keeps the per-round executor too: no fs_round
+PROCESS_KERNELS = tuple(k for k in R1CS_KERNELS if k != "fs_round")
 GENERIC_ROWS = GENERIC_KERNELS  # the phase-1 rows that also report an issue-slot floor
 
 # sha256 of the path A proof at 2^10 (seed 1234): the JAX package's host
@@ -124,6 +152,11 @@ PATH_A_SHA256_2P10 = "39ecc9b919b83f83f3831af319fa005ee7a7fcd766535b59caa0a115c7
 # sha256 of the JAX host prover's proof (tests/test_torch_e2e.py holds the two equal)
 N64_3_CASE = (1 << 8, 1234)
 N64_3_SHA256 = "facb3c5b1a8356f5f60363993fc196150c9ceecfeedf8cf32fe1dc4a5551bf8a"
+# sha256 of the 2^20 proofs (seed 5) of phase 3 and of path A: the per-round
+# driver's bytes on the card, which every mesh and process rank reproduced
+# (phases 7 and 9); the device-resident Fiat-Shamir driver must keep them
+R1CS_SHA256_2P20 = "1c247053da5882809f4b39de2c551898e14cb0cff20f504233db6ea9df253a2a"
+PATH_A_SHA256_2P20 = "6f4609087fe5211bfef31dc0e5bb085adf31ab652146ea218bf1c510020244a0"
 
 
 def log(msg: str) -> None:
@@ -354,8 +387,8 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
     from zinc_tpu_torch.benches import bench_kernels as bk
     from zinc_tpu_torch.fields.montgomery import device_field
 
-    results = {}
     floor_ms = bk.launch_floor_ms()
+    results = {"_launch_floor_ms": floor_ms}
     log(f"[launch] an empty kernel (torch.cuda._sleep(0)) takes {floor_ms:.4f} ms device-only: "
         f"the launch floor")
     for cfg, log_n in ((cfg8, 20), (cfg6, 20)):
@@ -442,6 +475,177 @@ def compare_generic(ctx, log_n: int) -> None:
             raise AssertionError(f"round_eval_generic disagrees with {what} at its shape")
         log(f"[compare] {what}'s shape, {shape}, {ctx.n32} words: {what} {bk.device_ms(own):.4f} ms, "
             f"round_eval_generic {bk.device_ms(generic):.4f} ms device-only (equal sums)")
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: fs_round, and the two sumcheck drivers
+# ---------------------------------------------------------------------------
+
+FS_WIDTHS = (8, 6, 16)  # n64 = 4 (every path), 3 and 8 (the widest field)
+
+
+def _field_of_words(n32: int):
+    """A field of n32 words for fs_round's cases: q = 2^(32·n32 − 1) plus a
+    small odd offset (2^255 + 95 at 8 words), so that the challenge masks
+    of 8, 6 and 16 words take the regimes under 2^256, under 2^256 with a
+    masked top half, and from 2^256 on.  Only the words matter to a case,
+    so q need not be prime."""
+    import zinc_tpu_torch as zt
+
+    q = (1 << (32 * n32 - 1)) + (95 if n32 == 8 else 2 * n32 + 1)
+    return zt.FieldConfig(q, n32 // 2)
+
+
+def phase_fs(info: dict, floor_ms: float) -> dict:
+    """(a) fs_round against its plain version, exactly equal in every word it
+    writes (sponge, s(t), r, pref), at each shape of
+    bench_kernels.fs_cases and 8, 6 and 16 words, with its device-only time
+    beside the launch floor; (b) fold and fold_round_eval with r on the card
+    equal to their host-word forms at 2^20.  Returns fs_round's
+    kernels-line row (its first case)."""
+    import numpy as np
+    import torch
+
+    from zinc_tpu_torch.benches import bench_kernels as bk
+    from zinc_tpu_torch.fields import montgomery as fm
+    from zinc_tpu_torch.fields.montgomery import device_field
+    from zinc_tpu_torch.sumcheck import kernels as sk
+    from zinc_tpu_torch.sumcheck.device_fs import fs_round, fs_round_plain
+
+    row = None
+    for n32 in FS_WIDTHS:
+        ctx = device_field(_field_of_words(n32))
+        for c in bk.fs_cases(ctx, "cuda"):
+            got, want = c["inputs"](), c["inputs"]()
+            fs_round(ctx, *got)
+            fs_round_plain(ctx, *want)
+            torch.cuda.synchronize()
+            outs = [(g, w) for g, w in zip(got, want) if isinstance(g, torch.Tensor)]
+            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+                      for g, w in outs)
+            exact = all(torch.equal(g, w) for g, w in outs)
+            args = c["inputs"]()
+            ms = bk.device_ms(lambda: fs_round(ctx, *args))
+            plain_args = c["inputs"]()
+            plain_ms = _time_ms(lambda: fs_round_plain(ctx, *plain_args), 3)
+            bound, by = bk.bound_ms(n32, c["bytes"], c["full"], 0, info["max_sm_mhz"])
+            log(f"[fs_round] {c['shape']}: max_abs_err {err} device-only {ms:.4f} ms plain "
+                f"{plain_ms:.4f} ms bound {bound:.6f} ms ({by}; {c['full']} products, "
+                f"{c['bytes']} bytes) launch floor {floor_ms:.4f} ms, time / floor "
+                f"{ms / floor_ms:.2f}")
+            if not exact:
+                raise AssertionError(f"fs_round disagrees with its plain version: {c['shape']}")
+            if row is None:
+                row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "library_ms": None, "launch_floor_ms": floor_ms}
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    ctx = device_field(_field_of_words(8))
+    rng = np.random.default_rng(24)
+    tabs = bk.random_residues(rng, ctx, (6, 1 << 20), "cuda")
+    r = bk.random_residues(rng, ctx, (1,), "cpu")[0].numpy().view(np.uint32)
+    r_dev = fm.to_tensor(r, "cuda")
+    terms = [(0, 1, 2, 3, 5), (4, 5)]
+    same_fold = torch.equal(sk.fold(ctx, tabs, r_dev), sk.fold(ctx, tabs, r))
+    (f_dev, s_dev), (f_host, s_host) = (sk.fold_round_eval(ctx, tabs, x, terms, 6)
+                                        for x in (r_dev, r))
+    same_k10 = torch.equal(f_dev, f_host) and torch.equal(s_dev, s_host)
+    log(f"[r on the card] 6 x 2^20, 8 words: fold equal to its host-word form: {same_fold}; "
+        f"fold_round_eval (path A's terms, 6 points) equal: {same_k10}")
+    if not (same_fold and same_k10):
+        raise AssertionError("a kernel's r_dev form differs from its host-word form")
+    return row
+
+
+FS_SPLITS: list[dict] = []  # _fs_checked's times of each sumcheck's steps
+
+
+def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None):
+    """sumcheck.device_fs.prove_as_subprotocol_device_fs with its enqueue
+    loop under torch.cuda.set_sync_debug_mode("error"): any host sync in
+    the loop raises.  Records in FS_SPLITS the host time of the start
+    (sponge export, constants), of the enqueue loop, the wait for the
+    device after it (a sync added for this split only) and of the finish
+    (the one fetch and the host tail).  Returns finals like the per-round
+    driver."""
+    import torch
+
+    from zinc_tpu_torch.sumcheck import device_fs
+    from zinc_tpu_torch.sumcheck.executor import make_executor
+
+    cuda = tables.is_cuda  # a CPU rehearsal has no CUDA sync to catch
+    t0 = time.perf_counter()
+    ex = make_executor(cfg, tables, degree, comb, eq_beta)
+    run = device_fs.start_fs(transcript, ex, nvars, degree)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    t1 = time.perf_counter()
+    try:
+        device_fs.enqueue_fs_rounds(run)
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+    t2 = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    proof, randomness, mles = device_fs.finish_fs(transcript, run)
+    t4 = time.perf_counter()
+    FS_SPLITS.append({"start_ms": (t1 - t0) * 1e3, "enqueue_ms": (t2 - t1) * 1e3,
+                      "device_wait_ms": (t3 - t2) * 1e3, "finish_ms": (t4 - t3) * 1e3})
+    return proof, randomness, [m[0] for m in mles]
+
+
+def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda") -> dict:
+    """Spartan's two sumchecks of ``fixture`` (2^20 entries) through both
+    drivers on the same device tables, from clones of one transcript, in
+    turns (device FS, per-round, per-round, device FS, ...): equal proofs,
+    r_y, v and transcript states; the walls of spartan.sumcheck1/2 of each
+    run and each sumcheck's host fetches.  The device-FS runs enqueue under
+    set_sync_debug_mode("error").  Returns the walls by driver."""
+    import zinc_tpu_torch as zt
+    from zinc_tpu_torch.spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
+    from zinc_tpu_torch.sumcheck.device import prove_as_subprotocol_device
+    from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
+    from zinc_tpu_torch.timing import STAGES
+    from zinc_tpu_torch.zinc import _z_vector
+
+    ccs, statement, wit = fixture
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(statement.public_input, t, 1, 4)
+    dstatement = DeviceStatement.upload(cfg, statement, device)
+    z_f = z_to_device(cfg, _z_vector(statement, wit, ccs), device)
+    drivers = {"device_fs": _fs_checked, "per_round": prove_as_subprotocol_device}
+    order = [name for i in range(turns) for name in
+             (("device_fs", "per_round") if i % 2 == 0 else ("per_round", "device_fs"))]
+    walls, results = {name: [] for name in drivers}, {}
+    for name in order:
+        tt = t.clone()
+        STAGES.clear()
+        SUMCHECKS.clear()
+        FS_SPLITS.clear()
+        proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, tt, cfg,
+                                             sumcheck=drivers[name])
+        w = [STAGES["spartan.sumcheck1"], STAGES["spartan.sumcheck2"]]
+        walls[name].append(w)
+        splits = "; device-FS steps (ms): " + json.dumps(
+            [{k: round(v, 3) for k, v in sp.items()} for sp in FS_SPLITS]) if FS_SPLITS else ""
+        log(f"[drivers] {label}, {name}: spartan.sumcheck1 {w[0]:.4f} s, spartan.sumcheck2 "
+            f"{w[1]:.4f} s; per sumcheck: {list(SUMCHECKS)}{splits}")
+        if any(rec["driver"] != name for rec in SUMCHECKS) or len(SUMCHECKS) != 2:
+            raise AssertionError(f"{label}: the {name} run recorded {list(SUMCHECKS)}")
+        if name == "device_fs" and any(rec["fetches"] != 1 for rec in SUMCHECKS):
+            raise AssertionError(f"{label}: a device-FS sumcheck fetched more than once")
+        results.setdefault(name, (proof, r_y, v, tt.h.digest(), tt.get_challenge(cfg)))
+    same = results["device_fs"] == results["per_round"]
+    med = {name: [sorted(w[i] for w in ws)[len(ws) // 2] for i in (0, 1)]
+           for name, ws in walls.items()}
+    log(f"[drivers] {label}: proofs, r_y, v and transcript states equal under both drivers: "
+        f"{same}; median spartan.sumcheck1 / 2 over {turns} runs each (s): {json.dumps(med)}")
+    if not same:
+        raise AssertionError(f"{label}: the two drivers disagree")
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -536,15 +740,21 @@ def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple, mesh=N
 
     import zinc_tpu_torch as zt
     from zinc_tpu_torch.ops import _cuda
+    from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
     from zinc_tpu_torch.timing import STAGES
 
     ccs, statement, wit = fixture
     torch.cuda.reset_peak_memory_stats()
     STAGES.clear()
+    SUMCHECKS.clear()
     _cuda.reset_launches()
     proof, cfg, (_, verifier), prove_s, verify_s = prove_verify(ccs, statement, wit, "cuda",
                                                                 mesh=mesh)
     launches = dict(_cuda.LAUNCHES)
+    log(f"[{label}] sumchecks: {list(SUMCHECKS)}")
+    if [(r["driver"], r["fetches"]) for r in SUMCHECKS] != [("device_fs", 1)] * 2:
+        raise AssertionError(f"{label}: not two device-FS sumchecks of one fetch each: "
+                             f"{list(SUMCHECKS)}")
     peak = torch.cuda.max_memory_allocated()
     blob = zt.serialize_proof(proof, cfg)
     size = len(blob)
@@ -565,9 +775,18 @@ def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple, mesh=N
     return {"launches": launches, "sha256": digest, "roots": proof.zip_proof.z_comm.roots}
 
 
+def _pinned(label: str, digest: str, want: str) -> None:
+    if digest != want:
+        raise AssertionError(f"{label}: proof hashes to {digest}, not {want}")
+    log(f"[{label}] proof sha256 is the pinned {want[:8]}…")
+
+
 def phase3(log_n: int) -> dict:
     ccs, statement, wit, _, _ = setup(1 << log_n, 5)
-    return prove_verify_large(f"2^{log_n}", (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS)
+    res = prove_verify_large(f"2^{log_n}", (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS)
+    if log_n == 20:
+        _pinned(f"2^{log_n}", res["sha256"], R1CS_SHA256_2P20)
+    return res
 
 
 def phase5(log_n: int) -> dict:
@@ -585,8 +804,11 @@ def phase5(log_n: int) -> dict:
     if digest != PATH_A_SHA256_2P10:
         raise AssertionError(f"path A 2^10 proof hashes to {digest}, not {PATH_A_SHA256_2P10}")
     check_launches(launches, PATH_A_KERNELS, ("round_eval_gruen",), "path A 2^10")
-    return prove_verify_large(f"path A 2^{log_n}", degree4_fixture(1 << log_n, 5), PATH_A_KERNELS,
-                              ("round_eval_gruen",))["launches"]
+    res = prove_verify_large(f"path A 2^{log_n}", degree4_fixture(1 << log_n, 5), PATH_A_KERNELS,
+                             ("round_eval_gruen",))
+    if log_n == 20:
+        _pinned(f"path A 2^{log_n}", res["sha256"], PATH_A_SHA256_2P20)
+    return res["launches"]
 
 
 def phase6(log_n: int) -> dict:
@@ -600,14 +822,15 @@ def phase6(log_n: int) -> dict:
     log(f"[path B 2^{log_n} x 7 factors] prove {res['prove_s']:.4f} s, verify "
         f"{res['verify_s']:.4f} s, accepted by the host verifier; launches of the timed "
         f"prove {launches}")
-    check_launches(launches, PATH_B_KERNELS, ("mont_mul", "round_eval", "round_eval_gruen"),
-                   "path B")
+    check_launches(launches, PATH_B_KERNELS,
+                   ("mont_mul", "round_eval", "round_eval_gruen", "fs_round"), "path B")
     return launches
 
 
 def _prove_on_mesh(label: str, fixture, mesh) -> dict:
     """One prove on ``mesh`` (no verify): its wall, sha256 and roots."""
     import zinc_tpu_torch as zt
+    from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
 
     ccs, statement, wit = fixture
     t = zt.KeccakTranscript()
@@ -616,7 +839,8 @@ def _prove_on_mesh(label: str, fixture, mesh) -> dict:
     proof = zt.ZincProver(zt.ZipTypes(1), mesh=mesh).prove(statement, wit, t, ccs, cfg)
     wall = time.perf_counter() - t0
     digest = hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest()
-    log(f"[{label}] prove {wall:.3f} s, proof sha256 {digest}, {mesh.stats}")
+    log(f"[{label}] prove {wall:.3f} s, proof sha256 {digest}, {mesh.stats}, sumchecks "
+        f"{list(SUMCHECKS)[-2:]}")
     return {"sha256": digest, "roots": proof.zip_proof.z_comm.roots}
 
 
@@ -934,7 +1158,7 @@ def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commi
             raise AssertionError(f"[{label}] rank {res['rank']}: the mesh was not used as "
                                  f"expected: {res['stats']}")
         if res["on_card"]:
-            check_launches(res["launches"], R1CS_KERNELS, GENERIC_KERNELS,
+            check_launches(res["launches"], PROCESS_KERNELS, GENERIC_KERNELS + ("fs_round",),
                            f"{label} rank {res['rank']}")
     log(f"[{label}] rank 0 verified in {results[0]['verify_s']:.3f} s, {results[0]['tamper']}; "
         f"every rank's proof is phase 3's")
@@ -1060,8 +1284,13 @@ def main() -> int:
     _, _, _, _, cfg8 = setup(1 << 10, 1234)  # any field of the main path's width
     _, _, _, _, cfg6 = setup(*N64_3_CASE, 3)
     kernels = phase1(cfg8, cfg6, info)
+    kernels["fs_round"] = phase_fs(info, kernels.pop("_launch_floor_ms"))
     phase2("cuda")
     single = phase3(20)
+    for log_n in (12, 14, 16):
+        compare_drivers(f"R1CS 2^{log_n}", setup(1 << log_n, 5)[:3])
+    compare_drivers("R1CS 2^20", setup(1 << 20, 5)[:3], turns=4)
+    compare_drivers("path A 2^20", degree4_fixture(1 << 20, 5))
     profile_prove(20)
     runs = [single["launches"], phase5(20), phase6(20), phase7(20, single)]
     runs += phase8()

@@ -46,13 +46,6 @@ NOT_PORTED = {
                              "traces nothing",
     "utils/__init__.py": "the package of the two modules above and timing, which is the port's "
                          "timing.py",
-    "sumcheck/device_fs.py": "device-resident Fiat-Shamir (XLA programs, not Pallas): the port "
-                             "squeezes on the host, one sync a round, with the same transcript "
-                             "bytes; a perf_opt candidate for after the benchmark",
-    "ops/keccak_kernel.py": "the device Keccak sponge of device_fs.py (XLA, not Pallas); the "
-                            "port's Keccak is the host's (hashing/keccak.py)",
-    "parallel/fs.py": "the sharded device-resident Fiat-Shamir loop; the port's Fiat-Shamir is "
-                      "on the host and parallel/sumcheck.py is its sharded loop",
 }
 # the JAX benches whose metric names each mirror owes
 JAX_BENCH = {

@@ -1,12 +1,15 @@
-"""The wrappers of the port's CUDA kernels (K1-K4 and the generic tier), and
-the port's native host runtime.
+"""The wrappers of the port's CUDA kernels (K1-K4, the generic tier and
+fs_round), and the port's native host runtime.
 
 On the CPU a wrapper takes the plain version, and only because its tensor
 lies on the CPU; bad dtypes, shapes and combinations raise.  The cases
-marked ``cuda`` hold each kernel against its plain version on the card and
-skip without one:
+marked ``cuda`` hold each kernel against its plain version on the card
+(fs_round in every challenge regime, fold and fold_round_eval with r on
+the card against their host-word forms), run the device-resident
+Fiat-Shamir driver's enqueue loop under
+``torch.cuda.set_sync_debug_mode("error")``, and skip without a card:
 
-    python -m pytest tests/test_torch_kernels.py -m cuda
+    python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
 
 import numpy as np
@@ -277,7 +280,7 @@ def test_cuda_tensors_launch_the_kernels(cuda_device, ctx):
     sk.round_eval(ctx, tabs, [(0, 1)], 3)
     sk.round_eval_gruen(ctx, tabs, a[:32].contiguous(), [(0,), (1,)], 3)
     assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 1,
-                              "round_eval_generic": 0, "fold_round_eval": 0}
+                              "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0}
 
 
 @pytest.mark.cuda
@@ -477,3 +480,87 @@ def test_sharded_executor_on_one_card_on_cuda(cuda_device, spec, degree, gruen):
     sharded = ShardedSumcheckExecutor(cfg, tabs, degree, comb, Mesh([cuda_device] * 4), beta)
     assert drive(sharded) == drive(make_executor(cfg, tabs, degree, comb, beta))
     assert sharded.sharded_rounds == 4  # blocks of 1024 down to 128 entries
+
+
+# ---------------------------------------------------------------------------
+# device-resident Fiat-Shamir on the card (the CPU cases: test_torch_device_fs.py)
+# ---------------------------------------------------------------------------
+
+# every regime of get_challenge: n64 = 1; q under 2^128; under 2^256; from 2^256 on
+FS_FIELDS = [((1 << 61) - 1, 1), ((1 << 127) - 1, 2), ((1 << 191) + 5, 3), (Q, 4),
+             ((1 << 511) + 187, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n64", FS_FIELDS)
+def test_fs_round_matches_plain_on_cuda(cuda_device, q, n64):
+    from zinc_tpu_torch.benches.bench_kernels import fs_cases
+    from zinc_tpu_torch.sumcheck import device_fs as dfs
+
+    c = fm.device_field(FieldConfig(q, n64))
+    for case in fs_cases(c, cuda_device):
+        got, want = case["inputs"](), case["inputs"]()
+        _cuda.reset_launches()
+        dfs.fs_round(c, *got)
+        assert _cuda.LAUNCHES["fs_round"] == 1
+        dfs.fs_round_plain(c, *want)
+        for g, w in zip(got, want):
+            if isinstance(g, torch.Tensor):
+                assert torch.equal(g, w), case["shape"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n64", FS_FIELDS)
+def test_r_on_the_card_equals_host_words_on_cuda(cuda_device, q, n64):
+    c = fm.device_field(FieldConfig(q, n64))
+    tabs = _residues(c, (6, 4096), 40, cuda_device)
+    r = fm.to_numpy(_residues(c, (1,), 41))[0]
+    r_dev = fm.to_tensor(r, cuda_device)
+    assert torch.equal(sk.fold(c, tabs, r_dev), sk.fold(c, tabs, r))
+    terms = [(0, 1, 2, 3, 5), (4, 5)]
+    (f1, s1), (f2, s2) = (sk.fold_round_eval(c, tabs, x, terms, 6) for x in (r_dev, r))
+    assert torch.equal(f1, f2) and torch.equal(s1, s2)
+    assert torch.equal(f1, sk.fold_plain(c, tabs, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["classic", "gruen", "generic"])
+def test_fs_enqueue_loop_syncs_nothing_on_cuda(cuda_device, tier):
+    """The device rounds queue with no host sync (set_sync_debug_mode
+    "error" raises on one), one fetch follows, and the proof, randomness,
+    finals and transcript equal the same driver's on the CPU."""
+    import random
+
+    from zinc_tpu_torch.sumcheck import device_fs as dfs
+    from zinc_tpu_torch.sumcheck.executor import make_executor
+    from zinc_tpu_torch.transcript import KeccakTranscript
+
+    cfg, nv = FieldConfig(Q, 4), 11
+    rng = random.Random(50)
+    n_tab, degree, comb = {"classic": (2, 2, [(1, (0, 1))]),
+                           "gruen": (3, 3, [(1, (0, 1, 3)), (-1, (2, 3))]),
+                           "generic": (5, 5, [(1, (0, 1, 2, 3, 4)), (-1, (3, 4))])}[tier]
+    comb = [(cfg.fp(k), t) for k, t in comb]
+    eq_beta = [cfg.fp(rng.randrange(Q)) for _ in range(nv)] if tier == "gruen" else None
+    tabs = _residues(fm.device_field(cfg), (n_tab, 1 << nv), 51)
+
+    def prove(tables, check_sync):
+        t = KeccakTranscript()
+        t.absorb(b"device-fs")
+        run = dfs.start_fs(t, make_executor(cfg, tables, degree, comb, eq_beta), nv, degree)
+        if check_sync:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            dfs.enqueue_fs_rounds(run)
+        finally:
+            if check_sync:
+                torch.cuda.set_sync_debug_mode("default")
+        proof, rnd, mles = dfs.finish_fs(t, run)
+        return ([[x.m for x in e] for e in proof], [x.m for x in rnd], [m[0].m for m in mles],
+                t.h.digest())
+
+    _cuda.reset_launches()
+    got = prove(tabs.to(cuda_device), True)
+    assert _cuda.LAUNCHES["fs_round"] == nv - 6  # rounds of more than 64 entries
+    assert got == prove(tabs, False)

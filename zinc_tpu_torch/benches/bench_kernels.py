@@ -148,6 +148,7 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
     bytes, bounds it: path B's last fold, K6's shape."""
     import numpy as np
 
+    from zinc_tpu_torch.fields import montgomery as fm
     from zinc_tpu_torch.ops import field_kernels as fk
     from zinc_tpu_torch.sumcheck import kernels as sk
 
@@ -161,6 +162,7 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
     sc2 = random_residues(rng, ctx, (2, n), device)  # (γ-table, z) of sumcheck 2
     e_lvl = random_residues(rng, ctx, (h,), device)  # suffix-eq level of round 1
     r = random_residues(rng, ctx, (1,), "cpu")[0].numpy().view(np.uint32)
+    r_dev = fm.to_tensor(r, device)  # the same r on the device (device-resident Fiat-Shamir)
     sc7 = random_residues(rng, ctx, (7, n), device)  # path B's 7 factors
     sc6 = random_residues(rng, ctx, (6, n), device)  # path A's 5 Mz tables + eq
     tail7 = sc7[:, :128].contiguous()  # path B's last device fold (2·HOST_TAIL entries)
@@ -209,7 +211,71 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
              folded_round(7 * h, t7, 8), 7 * (n + h) * eb),
         case("fold", "path B's last: 7 x 128 -> 64", lambda: sk.fold(ctx, tail7, r),
              lambda: sk.fold_plain(ctx, tail7, r), 7 * 64, 7 * (128 + 64) * eb, launch_bound=True),
+        # the r_dev forms, held against the host-word forms' plain versions
+        case("fold", f"3 x {sz}, r on the device", lambda: sk.fold(ctx, sc1, r_dev),
+             lambda: sk.fold_plain(ctx, sc1, r), 3 * h, 3 * (n + h) * eb),
+        case("fold_round_eval", f"path A: 6 x {sz} -> 2^{log_n - 1}, r on the device",
+             lambda: sk.fold_round_eval(ctx, sc6, r_dev, t_a, 6),
+             lambda: sk.fold_round_eval_plain(ctx, sc6, r, t_a, 6),
+             folded_round(6 * h, t_a, 6), 6 * (n + h) * eb),
     ]
+
+
+def fs_cases(ctx, device, seed: int = 23) -> list[dict]:
+    """fs_round at the shapes the device-FS paths give it, on random inputs:
+    dicts of a shape label, ``inputs()`` (a fresh copy of the arguments
+    after ``ctx``: the call writes in place), the round's Montgomery
+    products (``full``) and bytes moved.  The R1CS sumcheck 1 (Gruen: 2
+    terms, 4 points) on one block and on four, sumcheck 2 (1 term, 3
+    points), path A's generic sumcheck 1 (2 terms, 6 points), and sponge
+    positions from 0 to 135, so that a round's absorbs start anywhere in a
+    block and cross one or several (a 16-word round at 8 points absorbs
+    1,222 bytes).  The field's width is ``ctx``'s."""
+    import numpy as np
+    import torch
+
+    from zinc_tpu_torch.fields import montgomery as fm
+    from zinc_tpu_torch.ops.keccak_kernel import STATE_WORDS
+
+    rng = np.random.default_rng(seed)
+    n = ctx.n32
+    shapes = [  # (label, blocks, terms, points, Gruen, round, sponge position)
+        ("R1CS sumcheck 1 (Gruen), 1 block", 1, 2, 4, True, 3, 0),
+        ("R1CS sumcheck 1 (Gruen), 4 blocks", 4, 2, 4, True, 5, 101),
+        ("R1CS sumcheck 2, 1 block", 1, 1, 3, False, 0, 135),
+        ("path A sumcheck 1 (generic), 1 block", 1, 2, 6, False, 7, 67),
+        ("path B (generic), 8 points", 1, 1, 8, False, 2, 131),
+    ]
+    out = []
+    for label, d, terms, pts, gruen, rnd, pos in shapes:
+        rows = rnd + 2
+        base = {
+            "state": fm.to_tensor(rng.integers(0, 1 << 32, STATE_WORDS, dtype=np.uint64)
+                                  .astype(np.uint32), device),
+            "sums": random_residues(rng, ctx, (d, terms, pts), device),
+            "coeffs": random_residues(rng, ctx, (terms,), device),
+            "evals": random_residues(rng, ctx, (rows, pts), device),
+            "rs": random_residues(rng, ctx, (rows,), device),
+            "beta": random_residues(rng, ctx, (rows,), device) if gruen else None,
+            "pref": random_residues(rng, ctx, (1,), device)[0] if gruen else None,
+        }
+
+        def inputs(base=base, pos=pos, rnd=rnd):
+            c = {k: None if v is None else v.clone() for k, v in base.items()}
+            return (c["state"], pos, c["sums"], c["coeffs"], c["evals"], c["rs"], rnd, c["beta"],
+                    c["pref"])
+
+        # s(t) = Σ_k coeff_k·res_k(t): a product a term and point, and one
+        # for r's conversion; Gruen adds the ratchet's 3 and 4 a point (the
+        # eq factor's two, then pref·c·s); the sponge's permutations are not
+        # counted.  Bytes: the sums, coefficients, s and r, Gruen's β_{j−1},
+        # β_j, r_{j−1} and pref (read and written), the sponge read and written
+        full = pts * terms + 1 + (3 + 4 * pts if gruen else 0)
+        n_bytes = 4 * n * (d * terms * pts + terms + pts + 1 + (5 if gruen else 0)) \
+            + 2 * 4 * STATE_WORDS
+        out.append({"shape": f"{label}, {terms} terms x {pts} points, {n} words, sponge at {pos}",
+                    "inputs": inputs, "full": full, "bytes": n_bytes})
+    return out
 
 
 def k10_rounds(ctx, device, log_n: int = 20, seed: int = 22) -> dict[str, list[dict]]:

@@ -327,8 +327,8 @@ template <int N, bool FOLD>
 __global__ void __launch_bounds__(ZT_GEN_BLOCK) generic_round_kernel(
     uint32_t* __restrict__ out, uint32_t* __restrict__ sums,
     unsigned long long* __restrict__ colsum, uint32_t* folded, const uint32_t* tables, int n_tab,
-    int64_t b, int64_t pairs, Elem r, const __grid_constant__ GenComb comb, int n_pts, int staged,
-    FieldParams f) {
+    int64_t b, int64_t pairs, Elem r, const uint32_t* __restrict__ r_dev,
+    const __grid_constant__ GenComb comb, int n_pts, int staged, FieldParams f) {
     constexpr int P = gen_pass<N>();
     constexpr int SW = wide_words<N>();
     extern __shared__ uint32_t stage_mem[];
@@ -337,7 +337,7 @@ __global__ void __launch_bounds__(ZT_GEN_BLOCK) generic_round_kernel(
     unsigned int* done = reinterpret_cast<unsigned int*>(colsum + (int64_t)n_slots * N);
     uint32_t rr[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) rr[i] = FOLD ? r.w[i] : 0u;
+    for (int i = 0; i < N; ++i) rr[i] = FOLD ? (r_dev ? r_dev[i] : r.w[i]) : 0u;
     uint32_t* stage = FOLD && staged ? stage_mem : nullptr;
     const int64_t tiles = (pairs + 31) / 32;
     // a lane adds at most one product a tile to each of its sums
@@ -490,7 +490,8 @@ extern "C" int zt_gen_max_grid(int fold, int block, int64_t smem, int n32, int* 
 // stream.
 template <bool FOLD>
 static int gen_launch(void* out, void* sums, void* colsum, void* folded, const void* tables,
-                      int n_tab, int64_t b, int64_t pairs, const uint32_t* r, const int* start,
+                      int n_tab, int64_t b, int64_t pairs, const uint32_t* r,
+                      const void* r_dev, const int* start,
                       const int* fac, int n_terms, int n_pts, int block, int grid, int staged,
                       int n32, const uint32_t* q, uint32_t qinv, void* stream) {
     GenComb comb{};
@@ -500,7 +501,8 @@ static int gen_launch(void* out, void* sums, void* colsum, void* folded, const v
         return (int)cudaErrorInvalidValue;
     const int64_t smem = gen_smem(n32, staged ? n_tab : 0);
     const FieldParams f = make_params(q, n32, qinv);
-    const Elem re = FOLD ? make_elem(r, n32) : Elem{};
+    if (FOLD && (r == nullptr) == (r_dev == nullptr)) return (int)cudaErrorInvalidValue;
+    const Elem re = FOLD && r ? make_elem(r, n32) : Elem{};
     cudaStream_t s = (cudaStream_t)stream;
     const size_t zeroed = (size_t)comb.n_slots * n32 * sizeof(unsigned long long) + sizeof(unsigned int);
     if ((rc = (int)cudaMemsetAsync(colsum, 0, zeroed, s))) return rc;
@@ -508,7 +510,8 @@ static int gen_launch(void* out, void* sums, void* colsum, void* folded, const v
         if ((rc = prepare_smem(generic_round_kernel<N, FOLD>, smem))) return rc;
         generic_round_kernel<N, FOLD><<<grid, block, smem, s>>>(
             (uint32_t*)out, (uint32_t*)sums, (unsigned long long*)colsum, (uint32_t*)folded,
-            (const uint32_t*)tables, n_tab, b, pairs, re, comb, n_pts, staged, f);
+            (const uint32_t*)tables, n_tab, b, pairs, re, (const uint32_t*)r_dev, comb, n_pts,
+            staged, f);
     });
     return (int)cudaGetLastError();
 }
@@ -519,18 +522,20 @@ extern "C" int zt_round_eval_generic(void* out, void* sums, void* colsum, const 
                                      int n_terms, int n_pts, int block, int grid, int staged,
                                      int n32, const uint32_t* q, uint32_t qinv, void* stream) {
     if (b % 2) return (int)cudaErrorInvalidValue;
-    return gen_launch<false>(out, sums, colsum, nullptr, tables, n_tab, b, b / 2, nullptr, start,
-                             fac, n_terms, n_pts, block, grid, staged, n32, q, qinv, stream);
+    return gen_launch<false>(out, sums, colsum, nullptr, tables, n_tab, b, b / 2, nullptr,
+                             nullptr, start, fac, n_terms, n_pts, block, grid, staged, n32, q,
+                             qinv, stream);
 }
 
 // K10: (n_tab, b_in) raw tables folded by r into `folded`, (n_tab, b_in/2),
-// and the round sums of its b_in/4 pairs.
+// and the round sums of its b_in/4 pairs.  r as host words, or null and
+// r_dev its words in device memory (as zt_fold).
 extern "C" int zt_fold_round_eval(void* out, void* sums, void* colsum, void* folded,
                                   const void* in, int n_tab, int64_t b_in, const uint32_t* r,
-                                  const int* start, const int* fac, int n_terms, int n_pts,
-                                  int block, int grid, int staged, int n32, const uint32_t* q,
-                                  uint32_t qinv, void* stream) {
+                                  const void* r_dev, const int* start, const int* fac,
+                                  int n_terms, int n_pts, int block, int grid, int staged,
+                                  int n32, const uint32_t* q, uint32_t qinv, void* stream) {
     if (b_in % 4) return (int)cudaErrorInvalidValue;
-    return gen_launch<true>(out, sums, colsum, folded, in, n_tab, b_in, b_in / 4, r, start, fac,
-                            n_terms, n_pts, block, grid, staged, n32, q, qinv, stream);
+    return gen_launch<true>(out, sums, colsum, folded, in, n_tab, b_in, b_in / 4, r, r_dev, start,
+                            fac, n_terms, n_pts, block, grid, staged, n32, q, qinv, stream);
 }

@@ -10,7 +10,8 @@
 // Bound: at 256 bits a pair reads 64 B and writes 32 B per table for one
 // Montgomery product, so it is memory-bound on the H100; the design streams
 // the pairs with vector loads on neighbouring addresses and keeps r in the
-// kernel's parameter space.
+// kernel's parameter space, or, in the device-resident Fiat-Shamir loop,
+// loads r's N words from device memory once a thread (an L2 hit).
 //
 // K3 round_eval replaces mxu_exec.py:_eval_lm, K4 round_eval_gruen replaces
 // mxu_exec.py:_eval_lm_gruen: one template, one launch per round for the
@@ -55,10 +56,12 @@
 template <int N>
 __global__ void __launch_bounds__(256) fold_kernel(uint32_t* __restrict__ out,
                                                    const uint32_t* __restrict__ in,
-                                                   int64_t n_out, Elem r, FieldParams f) {
+                                                   int64_t n_out, Elem r,
+                                                   const uint32_t* __restrict__ r_dev,
+                                                   FieldParams f) {
     uint32_t rr[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) rr[i] = r.w[i];
+    for (int i = 0; i < N; ++i) rr[i] = r_dev ? r_dev[i] : r.w[i];
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_out; i += stride) {
         // (m, p) with i = m·half + p reads entries 2p and 2p+1 of table m,
@@ -296,16 +299,20 @@ __global__ void __launch_bounds__(ZT_EVAL_BLOCK, N <= 8 ? 2 : 1) round_eval_kern
     }
 }
 
+// r: the challenge as host words (it rides in the parameter space), or
+// null and r_dev its words in device memory, which every thread loads at its
+// start (the device-resident Fiat-Shamir loop's r, written by fs_round).
 extern "C" int zt_fold(void* out, const void* in, int64_t n_out, int n32, const uint32_t* r,
-                       const uint32_t* q, uint32_t qinv, void* stream) {
+                       const void* r_dev, const uint32_t* q, uint32_t qinv, void* stream) {
+    if ((r == nullptr) == (r_dev == nullptr)) return (int)cudaErrorInvalidValue;
     if (n_out <= 0) return 0;
     const FieldParams f = make_params(q, n32, qinv);
-    const Elem re = make_elem(r, n32);
+    const Elem re = r ? make_elem(r, n32) : Elem{};
     const int block = 256;
     const int grid = grid_for(n_out, block, 132 * 64);
     cudaStream_t s = (cudaStream_t)stream;
     ZT_DISPATCH_WORDS(n32, fold_kernel<N><<<grid, block, 0, s>>>(
-        (uint32_t*)out, (const uint32_t*)in, n_out, re, f));
+        (uint32_t*)out, (const uint32_t*)in, n_out, re, (const uint32_t*)r_dev, f));
     return (int)cudaGetLastError();
 }
 

@@ -36,13 +36,13 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu")
-HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh", "round_sums.cuh")
+SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu", "fs.cu")
+HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh", "round_sums.cuh", "keccak.cuh")
 # the word counts the kernels take: n32 = 2·n64 for n64 = 1..8 (64 to 512 bits)
 KERNEL_WORDS = tuple(range(2, 17, 2))
 
 LAUNCHES = {"mont_mul": 0, "fold": 0, "round_eval": 0, "round_eval_gruen": 0,
-            "round_eval_generic": 0, "fold_round_eval": 0}
+            "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0}
 # n32 -> {"seconds", "path", "cached", "ptxas"}
 BUILD: dict[int, dict] = {}
 
@@ -138,17 +138,20 @@ def lib(n32: int):
             build([n32])
             l = ctypes.CDLL(BUILD[n32]["path"])
             l.zt_mont_mul.argtypes = [_P, _P, _P, _I64, _I, _P, _U32, _P]
-            l.zt_fold.argtypes = [_P, _P, _I64, _I, _P, _P, _U32, _P]
+            l.zt_fold.argtypes = [_P, _P, _I64, _I, _P, _P, _P, _U32, _P]
             l.zt_eval_max_grid.argtypes = [_I, _I, _I, _I, _P]
             l.zt_round_eval.argtypes = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _P, _U32, _P]
             l.zt_gen_max_grid.argtypes = [_I, _I, _I64, _I, _P]
             l.zt_round_eval_generic.argtypes = [_P, _P, _P, _P, _I, _I64, _P, _P, _I, _I, _I, _I, _I,
                                                 _I, _P, _U32, _P]
-            l.zt_fold_round_eval.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _P, _P, _P, _I, _I, _I,
-                                             _I, _I, _I, _P, _U32, _P]
+            l.zt_fold_round_eval.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _I, _I,
+                                             _I, _I, _I, _I, _P, _U32, _P]
+            l.zt_fs_round.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _U32,
+                                      _P, _I, _P]
             for fn in (l.zt_mont_mul, l.zt_fold, l.zt_eval_max_grid, l.zt_round_eval,
-                       l.zt_gen_max_grid, l.zt_round_eval_generic, l.zt_fold_round_eval):
+                       l.zt_gen_max_grid, l.zt_round_eval_generic, l.zt_fold_round_eval,
+                       l.zt_fs_round):
                 fn.restype = _I
             _libs[n32] = l
     return _libs[n32]
@@ -190,6 +193,12 @@ def host_words(words: np.ndarray) -> np.ndarray:
 def modulus_words(ctx) -> np.ndarray:
     """``host_words`` of a field's modulus, made once per field."""
     return host_words(ctx.q)
+
+
+@functools.lru_cache(maxsize=32)
+def r2_words(ctx) -> np.ndarray:
+    """``host_words`` of a field's R² mod q (Montgomery's conversion factor)."""
+    return host_words(ctx.r2)
 
 
 def require_field_tensor(name: str, x: torch.Tensor, n32: int, ndim: int) -> None:

@@ -6,7 +6,10 @@ block-sharded over the mesh (``sumcheck.py``), and the Zip codeword matrix
 is row-sharded, or rows × columns on a 2-D mesh (``zip.py``); proofs are
 byte-identical to one device's.  ``init_distributed`` and
 ``hierarchical_mesh`` give a ("host", "chip") mesh whose rows are processes
-of ``torch.distributed`` (``mesh.py``).  Importing it loads no CUDA code
+of ``torch.distributed`` (``mesh.py``).  In one process the sumchecks run
+with the Fiat-Shamir sponge on the mesh's first device (``fs.py``), one
+host sync a sumcheck; over processes, one a round
+(``sumcheck.py``).  Importing it loads no CUDA code
 and starts no process group.
 """
 
@@ -20,6 +23,7 @@ from .mesh import (
     local_mesh_2d,
     shard_on_axis,
 )
+from .fs import prove_as_subprotocol_device_fs_sharded, wants_fs_sharded
 from .sumcheck import ShardedSumcheckExecutor, prove_sharded
 from .zip import commit_device_sharded, commit_device_sharded_2d
 
@@ -34,6 +38,8 @@ __all__ = [
     "shard_on_axis",
     "ShardedSumcheckExecutor",
     "prove_sharded",
+    "prove_as_subprotocol_device_fs_sharded",
+    "wants_fs_sharded",
     "commit_device_sharded",
     "commit_device_sharded_2d",
 ]

@@ -25,10 +25,9 @@ pre-scaled suffix buffers from ``build_sharded_suffix``) and their chooser
 ``make_sharded_executor``; its Gruen shards take the contiguous slices of
 the single-device eq levels, and Gruen applies on a mesh wherever it applies
 on one device (``executor.wants_gruen``), so ``wants_gruen_sharded`` has no
-counterpart.  ``zinc_tpu/parallel/fs.py`` (the sharded rounds inside the
-device-resident Fiat-Shamir loop) has none either: the port keeps
-Fiat-Shamir on the host, and this module is its sharded loop, as
-``sumcheck/device.py`` is ``device_fs.py``'s.
+counterpart.  :func:`prove_sharded` is the per-round driver over the
+shards; in one process the main path takes ``parallel/fs.py``, the same
+executor under the device-resident Fiat-Shamir driver.
 """
 
 from __future__ import annotations

@@ -33,8 +33,13 @@ def limbs_to_fp(words, cfg: FieldConfig) -> Fp:
     return cfg.fp_from_mont(fm.words_to_ints(np.asarray(words).reshape(1, -1))[0])
 
 
+def limbs_to_fps(words, cfg: FieldConfig) -> list[Fp]:
+    """(B, n32) uint32 words of Montgomery residues → field elements."""
+    return [cfg.fp_from_mont(v) for v in fm.words_to_ints(words)]
+
+
 def tensor_to_fps(table: torch.Tensor, cfg: FieldConfig) -> list[Fp]:
-    return [cfg.fp_from_mont(v) for v in fm.words_to_ints(fm.to_numpy(table))]
+    return limbs_to_fps(fm.to_numpy(table), cfg)
 
 
 def fold_once(ctx: DeviceField, table: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -2,14 +2,18 @@
 
 The port of ``zinc_tpu/spartan_dev.py``.  The witness-sized state lives on
 the device: the field-projected z, the Mz tables, the eq tables and the
-sumcheck folds.  Per round only the round's sums cross to the host for
-Fiat-Shamir.  The folded values double as V_s (sumcheck 1) and as the PCS
+sumcheck folds.  Each sumcheck takes the driver the reference picks
+(``spartan_dev.py:100-137``): on one device, or on a mesh in one process
+where ``wants_fs_sharded`` holds, device-resident Fiat-Shamir
+(``sumcheck/device_fs.py``, ``parallel/fs.py``), one host sync a
+sumcheck; on a mesh over processes, or one whose shards do not divide the
+hypercube, the per-round sharded executor (``parallel/sumcheck.py``), one
+sync a round.  The folded values double as V_s (sumcheck 1) and as the PCS
 opening value z̃(r_y) (sumcheck 2).
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,7 +29,8 @@ from .ops.field_kernels import mont_mul
 from .ops.field_map import i64_to_field_device, ints_to_field_device
 from .ops.sparse import eval_table_device, mat_vec_mul_device, upload_matrix
 from .poly.device import _eq_table_device, fps_to_tensor
-from .sumcheck.device import prove_as_subprotocol_device, wants_gruen
+from .sumcheck.device import wants_gruen
+from .sumcheck.device_fs import prove_as_subprotocol_device_fs
 from .timing import timed
 
 
@@ -76,20 +81,36 @@ def spartan_prove_device(
     transcript: KeccakTranscript,
     cfg: FieldConfig,
     mesh=None,
+    sumcheck=None,
 ):
     """Returns (SpartanProof, r_y, v) with v = z̃(r_y) for the PCS binding.
 
     With a ``mesh`` (``parallel.Mesh``), the setups run where z_f lies (the
     mesh's first device) and both sumchecks run block-sharded over the
-    mesh's shards (``parallel/sumcheck.py``); the transcript is identical."""
+    mesh's shards; the transcript is identical.  ``sumcheck`` replaces the
+    driver of both sumchecks (a function with the arguments and returns of
+    ``sumcheck.device.prove_as_subprotocol_device``), so that a caller can
+    hold one driver against another on the same tables."""
     device = z_f.device
     c_f = [cfg.fp(ci) for ci in ccs.c]
-    if mesh is None:
-        prove = prove_as_subprotocol_device
-    else:
+
+    def default(transcript, cfg, tables, nvars, degree, comb, eq_beta=None):
+        """(proof, randomness, finals) through the driver for this mesh."""
+        if mesh is None:
+            proof, randomness, mles = prove_as_subprotocol_device_fs(
+                transcript, cfg, tables, nvars, degree, comb, eq_beta=eq_beta)
+            return proof, randomness, [m[0] for m in mles]
+        from .parallel.fs import prove_as_subprotocol_device_fs_sharded, wants_fs_sharded
         from .parallel.sumcheck import prove_sharded
 
-        prove = functools.partial(prove_sharded, mesh=mesh)
+        eq_idx = None if eq_beta is None else tables.shape[0]
+        if wants_fs_sharded(cfg, comb, tables.shape[1], mesh, eq_idx):
+            proof, randomness, mles = prove_as_subprotocol_device_fs_sharded(
+                transcript, cfg, tables, nvars, degree, comb, mesh, eq_beta=eq_beta)
+            return proof, randomness, [m[0] for m in mles]
+        return prove_sharded(transcript, cfg, tables, nvars, degree, comb, mesh, eq_beta=eq_beta)
+
+    prove = sumcheck or default
 
     # ---- sumcheck 1 -------------------------------------------------------
     beta_s = squeeze_beta_challenges(transcript, ccs.s, cfg)

@@ -1,11 +1,14 @@
-"""Device sumcheck: round kernels on the device, Fiat-Shamir on the host.
+"""Device sumcheck with Fiat-Shamir on the host: the per-round driver.
 
-The port of ``zinc_tpu/sumcheck/device_fs.py``.  Each round runs the fold
-(K2) and the round evaluation (K3, or K4 for Gruen) on the device, fetches
-the round's sums (the one sync of the round), and lets the host
-``KeccakTranscript`` absorb the d+1 evaluations and squeeze r, exactly as
-``zinc_tpu/sumcheck/prover.py:87-118`` does.  The reference's device-
-resident sponge (``ops/keccak_kernel.py``) is not ported.
+The port of ``zinc_tpu/sumcheck/device.py``'s table-level entry.  Each
+round runs the fold (K2) and the round evaluation (K3, or K4 for Gruen) on
+the device, fetches the round's sums (the one sync of the round), and lets
+the host ``KeccakTranscript`` absorb the d+1 evaluations and squeeze r,
+exactly as ``zinc_tpu/sumcheck/prover.py:87-118`` does.  The main path
+takes ``device_fs.py`` instead (the sponge on the device, one sync a
+sumcheck, the same bytes); this driver stays for meshes over processes,
+whose rounds gather their sums over the host anyway, for the bench of path
+B and for the tests, which hold the two drivers equal.
 
 Gruen (sumcheck 1): the eq MLE never enters the fold.  Round j evaluates
 s_j(t) = pref_j · c_j(t) · Σ_i coeff_i · Σ_p E_j[p] · Π_{m∈S_i} M_m(t, p)

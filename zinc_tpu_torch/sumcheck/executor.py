@@ -1,11 +1,15 @@
-"""The per-round sumcheck executor and its round loop, on one device or on
-the blocks of a mesh.
+"""The sumcheck executor and its per-round loop, on one device or on the
+blocks of a mesh.
 
-The port of ``zinc_tpu/sumcheck/device.py:157-227``,
-``zinc_tpu/sumcheck/pallas_exec.py:212-301`` and the round logic of
-``zinc_tpu/sumcheck/device_fs.py``.  The tables stay on their devices; each
-round runs its kernels and sends only the round's sums to the host, which
-reduces them mod q, applies the coefficients and feeds the transcript.  The
+The port of ``zinc_tpu/sumcheck/device.py:157-227`` and
+``zinc_tpu/sumcheck/pallas_exec.py:212-301``.  The tables stay on their
+devices.  A device round is :meth:`DeviceSumcheckExecutor.launch_round`:
+the fold by the previous challenge (host words, or a tensor on the card)
+and the evaluation, queued with no host sync; both drivers run it.  The
+per-round driver here (:func:`prove_with_executor`) then fetches the
+round's sums, and the host reduces them mod q, applies the coefficients
+and feeds the transcript; the device-resident Fiat-Shamir driver
+(``device_fs.py``) hands them to ``fs_round`` on the card instead.  The
 executor takes one of three tiers, by the combination:
 
 * **classic** (K3's scope): rounds ≥ 1 ``fold`` (K2), every round
@@ -18,8 +22,9 @@ executor takes one of three tiers, by the combination:
 
 Once a table has at most ``HOST_TAIL`` entries, the last device fold and
 the remaining rounds run on the host with the reference's host prover
-(Gruen hands the folded eq row pref·E over with the tables, so the host
-sees the classic combination).  Transcripts do not depend on the split.
+(Gruen hands the folded eq row pref·E over with the tables,
+:meth:`DeviceSumcheckExecutor.remainder`, so the host sees the classic
+combination).  Transcripts do not depend on the split.
 
 **Blocks.**  The tables may come as D contiguous blocks of their hypercube
 axis, block s holding entries [s·b/D, (s+1)·b/D) on its own device (a
@@ -48,17 +53,25 @@ versions, so there is one executor for every platform.
 
 from __future__ import annotations
 
+from collections import deque
+
 import torch
 
 from ..fields.config import FieldConfig, Fp
 from ..sumcheck.prover import _absorb_nvars_degree, _fold, _round_evals
 from ..transcript import KeccakTranscript
+from ..fields import montgomery as fm
 from ..fields.montgomery import device_field
 from ..ops.field_kernels import mont_mul
-from ..poly.device import eq_levels, fps_to_limbs, fps_to_tensor, tensor_to_fps
+from ..poly.device import eq_levels, fps_to_limbs, fps_to_tensor, limbs_to_fps
 from . import kernels
 
 HOST_TAIL = 64  # tables of at most this many entries finish on the host
+
+# a record of each of the latest sumchecks the drivers ran, for callers that
+# show which driver ran and how often it fetched from the device: {"driver":
+# "per_round" or "device_fs", "device_rounds", "fetches", "sharded_rounds"}
+SUMCHECKS: deque[dict] = deque(maxlen=16)
 
 
 def wants_gruen(cfg: FieldConfig, comb, eq_idx: int, b: int) -> bool:
@@ -76,6 +89,12 @@ def uses_generic(cfg: FieldConfig, comb, degree: int) -> bool:
     idx_terms = [tuple(idxs) for _, idxs in comb]
     return degree + 1 > kernels.MAX_POINTS or not kernels.classic_supported(
         idx_terms, 2 * cfg.n64, degree + 1)
+
+
+def _on(r, block: torch.Tensor):
+    """r for a launch on ``block``: host words as they are, a tensor on the
+    block's device (a device-to-device copy where it lies elsewhere)."""
+    return r.to(block.device) if isinstance(r, torch.Tensor) else r
 
 
 def _eq_factor(beta: Fp, r: Fp) -> Fp:
@@ -130,6 +149,8 @@ class DeviceSumcheckExecutor:
         self.size = sum(b.shape[1] for b in self.blocks) * world  # entries a table
         self.folds = 0
         self.sharded_rounds = 0  # rounds evaluated on more than one block
+        self.fetches = 0  # copies of round sums or tables to the host
+        self.launched = 0  # device rounds queued (launch_round)
         self._host_mles: list[list[Fp]] | None = None
         if eq_beta is not None:
             if not wants_gruen(cfg, comb, self.blocks[0].shape[0], self.size):
@@ -156,13 +177,20 @@ class DeviceSumcheckExecutor:
         self.n_blocks = 1
         return local
 
-    def _demote_to_host(self) -> None:
+    def remainder(self, pref: torch.Tensor | None = None) -> torch.Tensor:
+        """The tables as they stand, joined on the first block's device, with
+        Gruen's folded eq row pref·E (``pref`` a tensor there) as the last
+        table, so that the host rounds see the classic combination."""
         buf = self._joined()
-        mles = [tensor_to_fps(buf[i], self.cfg) for i in range(buf.shape[0])]
         if self.tier == "gruen":
-            pref = fps_to_tensor([self.pref], self.cfg, self.home)[0]
-            mles.append(tensor_to_fps(mont_mul(self.ctx, self.levels[self.folds], pref), self.cfg))
-        self._host_mles = mles
+            buf = torch.cat([buf, mont_mul(self.ctx, self.levels[self.folds], pref)[None]])
+        return buf
+
+    def _demote_to_host(self) -> None:
+        pref = fps_to_tensor([self.pref], self.cfg, self.home)[0] if self.tier == "gruen" else None
+        arr = fm.to_numpy(self.remainder(pref))  # the one fetch of the hand-over
+        self.fetches += 1
+        self._host_mles = [limbs_to_fps(arr[i], self.cfg) for i in range(arr.shape[0])]
         self.blocks = None
 
     def _host_round(self) -> list[Fp]:
@@ -170,36 +198,66 @@ class DeviceSumcheckExecutor:
 
     # -- device rounds -------------------------------------------------------
 
-    def _bound(self, r_prev: Fp) -> None:
-        """Book one fold by r_prev: the size and, for Gruen, the pref ratchet."""
-        if self.tier == "gruen":
-            self.pref = self.pref * _eq_factor(self.beta[self.folds], r_prev)
+    def _folded(self) -> None:
         self.folds += 1
         self.size //= 2
 
-    def _values(self, sums: list, gruen_factor=None) -> list[Fp]:
-        """The round's evaluations from the local blocks' sums and, with a
-        group, every other process's, gathered in rank order."""
-        if self.group is not None:
-            local = torch.stack([s.to(self.home) for s in sums])
-            sums = [s for part in self.group.all_gather(local) for s in part]
-        if len(sums) > 1:
-            self.sharded_rounds += 1
-        return round_values(self.cfg, sums, self.coeffs, gruen_factor)
+    def _fold(self, r) -> None:
+        """Fold every block by r (host words, or a tensor on the first block's
+        device)."""
+        self.blocks = [kernels.fold(self.ctx, b, _on(r, b)) for b in self.blocks]
+        self._folded()
 
-    def _evaluate(self) -> list[Fp]:
+    def _ratchet(self, r: Fp) -> None:
+        """The per-round driver's Gruen ratchet on the host, before the fold
+        by r: pref ← pref · eq(β_j, r)."""
+        if self.tier == "gruen":
+            self.pref = self.pref * _eq_factor(self.beta[self.folds], r)
+
+    def _evaluate(self) -> list[torch.Tensor]:
+        """Each local block's round sums (n_terms, n_pts, n32), on its device."""
         ctx, n_pts = self.ctx, self.degree + 1
         if self.tier == "gruen":
             first = 0 if self.group is None else self.group.rank * len(self.blocks)
             parts = self.levels[self.folds + 1].chunk(self.n_blocks)[first : first + len(self.blocks)]
-            sums = [kernels.round_eval_gruen(ctx, b, e.to(b.device), self.rests, n_pts)
+            return [kernels.round_eval_gruen(ctx, b, e.to(b.device), self.rests, n_pts)
                     for b, e in zip(self.blocks, parts)]
-            return self._values(sums, (self.pref, self.beta[self.folds]))
         if self.tier == "classic":
-            return self._values([kernels.round_eval(ctx, b, self.idx_terms, n_pts)
-                                 for b in self.blocks])
-        return self._values([kernels.round_eval_generic(ctx, b, self.idx_terms, n_pts)
-                             for b in self.blocks])
+            return [kernels.round_eval(ctx, b, self.idx_terms, n_pts) for b in self.blocks]
+        return [kernels.round_eval_generic(ctx, b, self.idx_terms, n_pts) for b in self.blocks]
+
+    def launch_round(self, r=None) -> list[torch.Tensor]:
+        """Queue a device round: fold by r (None in round 0; host words, or a
+        tensor on the first block's device) and evaluate, the generic tier's
+        two in one K10 launch while a folded block keeps more than HOST_TAIL
+        entries; a block of at most HOST_TAIL entries is first handed over
+        to the first block's device.  Returns each local block's sums, on its
+        device, with no host sync: both drivers' device rounds are this."""
+        if r is not None and self.tier == "generic" and self.blocks[0].shape[1] // 2 > HOST_TAIL:
+            out = [kernels.fold_round_eval(self.ctx, b, _on(r, b), self.idx_terms, self.degree + 1)
+                   for b in self.blocks]
+            self.blocks = [folded for folded, _ in out]
+            self._folded()
+            sums = [s for _, s in out]
+        else:
+            if r is not None:
+                self._fold(r)
+            if self.n_blocks > 1 and self.blocks[0].shape[1] <= HOST_TAIL:
+                self.blocks = [self._joined()]  # the hand-over to the first block's device
+            sums = self._evaluate()
+        self.sharded_rounds += self.n_blocks > 1
+        self.launched += 1
+        return sums
+
+    def _values(self, sums: list, gruen_factor=None) -> list[Fp]:
+        """The round's evaluations from the local blocks' sums and, with a
+        group, every other process's, gathered in rank order (a fetch from
+        each block's device)."""
+        if self.group is not None:
+            local = torch.stack([s.to(self.home) for s in sums])
+            sums = [s for part in self.group.all_gather(local) for s in part]
+        self.fetches += len(sums)
+        return round_values(self.cfg, sums, self.coeffs, gruen_factor)
 
     def round(self, r_prev: Fp | None) -> list[Fp]:
         """The round's evaluations at 0..degree, after folding r_prev (None
@@ -207,30 +265,25 @@ class DeviceSumcheckExecutor:
         if self._host_mles is not None:
             self._host_mles = _fold(self._host_mles, r_prev)
             return self._host_round()
+        r = None
         if r_prev is not None:
+            self._ratchet(r_prev)
             r = fps_to_limbs([r_prev], self.cfg)[0]
-            if self.tier == "generic" and self.blocks[0].shape[1] // 2 > HOST_TAIL:
-                out = [kernels.fold_round_eval(self.ctx, b, r, self.idx_terms, self.degree + 1)
-                       for b in self.blocks]
-                self.blocks = [folded for folded, _ in out]
-                self._bound(r_prev)
-                return self._values([sums for _, sums in out])
-            self.blocks = [kernels.fold(self.ctx, b, r) for b in self.blocks]
-            self._bound(r_prev)
-        if self.size <= HOST_TAIL:
+        if self.size // (1 if r is None else 2) <= HOST_TAIL:
+            if r is not None:
+                self._fold(r)
             self._demote_to_host()
             return self._host_round()
-        if self.n_blocks > 1 and self.blocks[0].shape[1] <= HOST_TAIL:
-            self.blocks = [self._joined()]  # the hand-over to the first block's device
-        return self._evaluate()
+        sums = self.launch_round(r)
+        gruen = (self.pref, self.beta[self.folds]) if self.tier == "gruen" else None
+        return self._values(sums, gruen)
 
     def final_fold(self, r: Fp) -> None:
         if self._host_mles is not None:
             self._host_mles = _fold(self._host_mles, r)
         else:
-            rw = fps_to_limbs([r], self.cfg)[0]
-            self.blocks = [kernels.fold(self.ctx, b, rw) for b in self.blocks]
-            self._bound(r)
+            self._ratchet(r)
+            self._fold(fps_to_limbs([r], self.cfg)[0])
 
     def final_values(self) -> list[Fp]:
         """The fully folded value of every MLE (the eq MLE last for Gruen)."""
@@ -271,4 +324,6 @@ def prove_with_executor(
         transcript.absorb_field(r)
         randomness.append(r)
     executor.final_fold(randomness[-1])
+    SUMCHECKS.append({"driver": "per_round", "device_rounds": executor.launched,
+                      "fetches": executor.fetches, "sharded_rounds": executor.sharded_rounds})
     return proof, randomness

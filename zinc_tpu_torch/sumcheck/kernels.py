@@ -23,8 +23,12 @@ Every round kernel returns, per term and point t, the round sums reduced
 mod q: (n_terms, n_pts, n32) int32 canonical residues, from one launch per
 round for the whole combination.  They are linear in the products, so the
 term's coefficient and, for K4, the Gruen factor pref·c_j(t) are applied
-afterwards (``sumcheck/executor.py:round_values``), on the host, where the
-Fiat-Shamir transcript needs the round values anyway.
+afterwards, where the Fiat-Shamir transcript takes the round values: on the
+host (``sumcheck/executor.py:round_values``) or on the card, by
+``fs_round`` (``sumcheck/device_fs.py``).  :func:`fold` and
+:func:`fold_round_eval` take the challenge r as host words or as a tensor
+on the tables' device (the device-resident loop's r, which ``fs_round``
+writes there).
 
 Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -204,16 +208,38 @@ def _check_generic(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int) ->
 # ---------------------------------------------------------------------------
 
 
-def fold_plain(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray) -> torch.Tensor:
-    rt = fm.to_tensor(np.asarray(r, dtype=np.uint32), tables.device)
+def _check_r(ctx: DeviceField, tables: torch.Tensor, r) -> None:
+    """r as host words (n32,), or as an int32 (n32,) tensor on the tables'
+    device (the device-resident Fiat-Shamir loop's challenge)."""
+    if isinstance(r, torch.Tensor):
+        _cuda.require_field_tensor("r", r, ctx.n32, 1)
+        if r.device != tables.device:
+            raise ValueError(f"r: on {r.device}, the tables on {tables.device}")
+    elif np.asarray(r).shape != (ctx.n32,):
+        raise ValueError(f"r: expected {ctx.n32} words, got shape {np.asarray(r).shape}")
+
+
+def _r_args(r) -> tuple:
+    """(host words, device pointer) of a launch's r: one of them None."""
+    if isinstance(r, torch.Tensor):
+        return None, r.data_ptr()
+    return _cuda.host_words(r).ctypes.data, None
+
+
+def fold_plain(ctx: DeviceField, tables: torch.Tensor, r) -> torch.Tensor:
+    if not isinstance(r, torch.Tensor):
+        r = fm.to_tensor(np.asarray(r, dtype=np.uint32), tables.device)
     v0, v1 = tables[:, 0::2], tables[:, 1::2]
-    return fm.mont_add(ctx, v0, fm.mont_mul(ctx, fm.mont_sub(ctx, v1, v0), rt))
+    return fm.mont_add(ctx, v0, fm.mont_mul(ctx, fm.mont_sub(ctx, v1, v0), r))
 
 
-def fold(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray) -> torch.Tensor:
+def fold(ctx: DeviceField, tables: torch.Tensor, r) -> torch.Tensor:
     """v0 + r·(v1 − v0) over pairs (2p, 2p+1) of every table; r as (n32,)
-    uint32 words (it is a host-side Fiat-Shamir challenge)."""
+    uint32 host words (a host-side Fiat-Shamir challenge, in the launch's
+    parameters), or as an int32 (n32,) tensor on the tables' device, which
+    the kernel reads there (the device-resident loop's challenge)."""
     _check_tables(ctx, tables)
+    _check_r(ctx, tables, r)
     if not tables.is_cuda:
         return fold_plain(ctx, tables, r)
     _cuda.require_kernel_words(ctx.n32)
@@ -221,10 +247,10 @@ def fold(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray) -> torch.Tensor:
     out = torch.empty((n_tab, b // 2, n), dtype=torch.int32, device=tables.device)
     if out.numel() == 0:
         return out
-    rw, q = _cuda.host_words(r), _cuda.modulus_words(ctx)
+    q = _cuda.modulus_words(ctx)
     with _cuda.on_device(tables):
         rc = _cuda.lib(n).zt_fold(
-            out.data_ptr(), tables.data_ptr(), n_tab * (b // 2), n, rw.ctypes.data,
+            out.data_ptr(), tables.data_ptr(), n_tab * (b // 2), n, *_r_args(r),
             q.ctypes.data, ctx.nprime32, _cuda.stream_ptr(tables.device),
         )
     _cuda.check(rc, "fold")
@@ -469,7 +495,6 @@ def _generic_launch(name, ctx, tables, terms, n_pts, folded=None, r=None) -> tor
     dev = tables.device
     n_out, n_sums = len(terms) * n_pts * n, generic_slots(terms, n_pts) * n
     start, fac = _comb_arrays(tuple(map(tuple, terms)))
-    rw = _cuda.host_words(r) if fold else None
     with _cuda.on_device(tables):
         block, staged, max_grid = generic_plan(lib, dev, n, generic_warps(terms, n_pts, n), n_tab,
                                                fold)
@@ -481,7 +506,7 @@ def _generic_launch(name, ctx, tables, terms, n_pts, folded=None, r=None) -> tor
         field = (n, _cuda.modulus_words(ctx).ctypes.data, ctx.nprime32, _cuda.stream_ptr(dev))
         if fold:
             rc = lib.zt_fold_round_eval(*bufs, folded.data_ptr(), tables.data_ptr(), n_tab, b,
-                                        rw.ctypes.data, *comb, *field)
+                                        *_r_args(r), *comb, *field)
         else:
             rc = lib.zt_round_eval_generic(*bufs, tables.data_ptr(), n_tab, b, *comb, *field)
     _cuda.check(rc, name)
@@ -500,11 +525,13 @@ def round_eval_generic(ctx: DeviceField, tables: torch.Tensor, terms, n_pts: int
     return _generic_launch("round_eval_generic", ctx, tables, terms, n_pts)
 
 
-def fold_round_eval(ctx: DeviceField, tables: torch.Tensor, r: np.ndarray, terms, n_pts: int):
-    """Fold every table by r (as :func:`fold`) and evaluate the combination
-    over the folded pairs (as :func:`round_eval_generic`) in one launch.
-    Returns (folded (n_tables, B/2, n32), sums (n_terms, n_pts, n32))."""
+def fold_round_eval(ctx: DeviceField, tables: torch.Tensor, r, terms, n_pts: int):
+    """Fold every table by r (as :func:`fold`: host words or a tensor on the
+    tables' device) and evaluate the combination over the folded pairs (as
+    :func:`round_eval_generic`) in one launch.  Returns (folded (n_tables,
+    B/2, n32), sums (n_terms, n_pts, n32))."""
     _check_tables(ctx, tables)
+    _check_r(ctx, tables, r)
     _check_generic(ctx, tables, terms, n_pts)
     if tables.shape[1] % 4:
         raise ValueError(f"tables: length {tables.shape[1]} is not a multiple of 4")
