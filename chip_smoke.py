@@ -73,13 +73,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    at run time and printed: device bytes equal host bytes for the 2^12
    R1CS at n64 = 4 and 3 and for path A at 2^12, with both walls;
 9. a mesh over two processes (``chip_smoke.py --rank R ...`` children, each
-   with a timeout): two ranks on this card over gloo, each with the local
-   devices [cuda:0, cuda:0] on hierarchical_mesh(2, 2), prove the 2^20 R1CS
-   of phase 3 to its sha256 on the per-round executor (a mesh over
-   processes gathers each round's sums over gloo); rank 0 verifies and
-   rejects the tamper; every
-   rank's stage walls, launches and the bytes its all-gathers brought in;
-   with two cards or more, one rank per card over NCCL;
+   with a timeout), every rank on the device-FS driver, running fs_round
+   over the all-gathered sums of every shard: (a) two ranks on this card
+   over gloo, each with the local devices [cuda:0, cuda:0] on
+   hierarchical_mesh(2, 2); each rank first runs Spartan's two 2^20
+   sumchecks under both sharded drivers on the same tables
+   (compare_drivers: equal proofs, r and transcripts, both drivers'
+   walls), then proves the 2^20 R1CS of phase 3 to its sha256 with both
+   sumchecks on the device-FS driver (12 sharded rounds each, one fetch
+   and 13 gathers staged through the host, since gloo gathers only
+   there), both ranks' transcripts ending equal; rank 0 verifies and
+   rejects the tamper; every rank's stage walls, launches (fs_round once a
+   device round), sumchecks and the bytes its all-gathers brought in;
+   (b) with two cards or more, one rank per card over NCCL: one fetch a
+   sumcheck, no gather through the host, and the enqueue loops, the
+   rank's first collective among them, clean under sync debug "error";
 10. the bench mirrors (zinc_tpu_torch/benches/) on the card, each through
    its ``main``: bench_round (a 2^20 round of bench.py's metric, K4 then
    K2 as native/cpu_baseline.cpp runs it, held exactly equal to its plain
@@ -94,9 +102,10 @@ last is a JSON object with one entry per kernel: its launches summed over
 the four 2^20 runs (phase 3, path A at 2^20, path B's timed prove, phase
 7's (a)), phase 8's device proves and phase 9's ranks, each counted from 0,
 and the numbers of its first phase-1 case (fs_round's: its first phase-1b
-case, whose bound is written beside the launch floor); the 2^10 runs',
-phase 3b's and phase 10's launches are logged on their own lines.  The last line is the JSON result
-object.
+case, whose bound is written beside the launch floor); phase 9's ranks
+count their proves only, fs_round among them.  The 2^10 runs', phase 3b's
+and phase 10's launches are logged on their own lines; phase 9's driver
+comparisons' are not counted.  The last line is the JSON result object.
 """
 
 from __future__ import annotations
@@ -136,13 +145,12 @@ KERNELS = {
                  "zinc_tpu/ops/keccak_kernel.py:64 (keccak_f1600_device), :183 (absorb_dyn), "
                  ":206 (digest_dyn)"),
 }
-# the kernels each path must launch (and the dummy R1CS none of the generic tier)
+# the kernels each path must launch (and the dummy R1CS none of the generic tier),
+# on one device, on a mesh and on every rank of a mesh over processes
 R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round")
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
 PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS
 PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS  # path B's bench keeps the per-round executor
-# a mesh over processes keeps the per-round executor too: no fs_round
-PROCESS_KERNELS = tuple(k for k in R1CS_KERNELS if k != "fs_round")
 GENERIC_ROWS = GENERIC_KERNELS  # the phase-1 rows that also report an issue-slot floor
 
 # sha256 of the path A proof at 2^10 (seed 1234): the JAX package's host
@@ -560,22 +568,45 @@ def phase_fs(info: dict, floor_ms: float) -> dict:
 FS_SPLITS: list[dict] = []  # _fs_checked's times of each sumcheck's steps
 
 
-def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None):
-    """sumcheck.device_fs.prove_as_subprotocol_device_fs with its enqueue
-    loop under torch.cuda.set_sync_debug_mode("error"): any host sync in
-    the loop raises.  Records in FS_SPLITS the host time of the start
-    (sponge export, constants), of the enqueue loop, the wait for the
+def stages_through_host(mesh, device) -> bool:
+    """True when a mesh over processes gathers the sumcheck's tensors on
+    ``device`` through the host (``ProcessGroup.stages``)."""
+    return mesh is not None and mesh.group is not None and mesh.group.stages(device)
+
+
+def fs_fetches(rec: dict, staged: bool) -> int:
+    """The host fetches a device-FS sumcheck (its SUMCHECKS record) owes:
+    the one fetch, and where the group stages through the host, one staged
+    copy for each sharded round's sums and one for the hand-over."""
+    return 1 + (rec["sharded_rounds"] + 1 if staged else 0)
+
+
+def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None, mesh=None):
+    """sumcheck.device_fs.prove_as_subprotocol_device_fs (with a ``mesh``:
+    parallel.fs's sharded driver) with its enqueue loop under
+    torch.cuda.set_sync_debug_mode("error"): any host sync in the loop
+    raises (not checked where the mesh's gloo group stages the round's
+    sums through the host).  Records in FS_SPLITS the host time of the
+    start (sponge export, constants), of the enqueue loop, the wait for the
     device after it (a sync added for this split only) and of the finish
     (the one fetch and the host tail).  Returns finals like the per-round
     driver."""
     import torch
 
+    from zinc_tpu_torch.parallel import ShardedSumcheckExecutor, wants_fs_sharded
     from zinc_tpu_torch.sumcheck import device_fs
     from zinc_tpu_torch.sumcheck.executor import make_executor
 
-    cuda = tables.is_cuda  # a CPU rehearsal has no CUDA sync to catch
+    # a CPU rehearsal has no CUDA sync to catch, and a staged gather syncs
+    cuda = tables.is_cuda and not stages_through_host(mesh, tables.device)
     t0 = time.perf_counter()
-    ex = make_executor(cfg, tables, degree, comb, eq_beta)
+    if mesh is None:
+        ex = make_executor(cfg, tables, degree, comb, eq_beta)
+    else:
+        if not wants_fs_sharded(cfg, comb, tables.shape[1], mesh,
+                                None if eq_beta is None else tables.shape[0]):
+            raise AssertionError(f"the sharded device-FS driver refuses {tuple(tables.shape)}")
+        ex = ShardedSumcheckExecutor(cfg, tables, degree, comb, mesh, eq_beta)
     run = device_fs.start_fs(transcript, ex, nvars, degree)
     if cuda:
         torch.cuda.synchronize()
@@ -597,14 +628,19 @@ def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None):
     return proof, randomness, [m[0] for m in mles]
 
 
-def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda") -> dict:
+def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", mesh=None) -> dict:
     """Spartan's two sumchecks of ``fixture`` (2^20 entries) through both
     drivers on the same device tables, from clones of one transcript, in
     turns (device FS, per-round, per-round, device FS, ...): equal proofs,
     r_y, v and transcript states; the walls of spartan.sumcheck1/2 of each
     run and each sumcheck's host fetches.  The device-FS runs enqueue under
-    set_sync_debug_mode("error").  Returns the walls by driver."""
+    set_sync_debug_mode("error").  With a ``mesh`` (in one process or over
+    several) both drivers are the sharded ones on its shards, the tables on
+    its first device.  Returns the walls by driver."""
+    import functools
+
     import zinc_tpu_torch as zt
+    from zinc_tpu_torch.parallel import prove_sharded
     from zinc_tpu_torch.spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
     from zinc_tpu_torch.sumcheck.device import prove_as_subprotocol_device
     from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
@@ -612,11 +648,18 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda") -
     from zinc_tpu_torch.zinc import _z_vector
 
     ccs, statement, wit = fixture
+    if mesh is not None:
+        device = mesh.first
+    staged = stages_through_host(mesh, device)
     t = zt.KeccakTranscript()
     cfg = zt.draw_random_field(statement.public_input, t, 1, 4)
     dstatement = DeviceStatement.upload(cfg, statement, device)
     z_f = z_to_device(cfg, _z_vector(statement, wit, ccs), device)
-    drivers = {"device_fs": _fs_checked, "per_round": prove_as_subprotocol_device}
+    if mesh is None:
+        drivers = {"device_fs": _fs_checked, "per_round": prove_as_subprotocol_device}
+    else:
+        drivers = {"device_fs": functools.partial(_fs_checked, mesh=mesh),
+                   "per_round": functools.partial(prove_sharded, mesh=mesh)}
     order = [name for i in range(turns) for name in
              (("device_fs", "per_round") if i % 2 == 0 else ("per_round", "device_fs"))]
     walls, results = {name: [] for name in drivers}, {}
@@ -635,8 +678,10 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda") -
             f"{w[1]:.4f} s; per sumcheck: {list(SUMCHECKS)}{splits}")
         if any(rec["driver"] != name for rec in SUMCHECKS) or len(SUMCHECKS) != 2:
             raise AssertionError(f"{label}: the {name} run recorded {list(SUMCHECKS)}")
-        if name == "device_fs" and any(rec["fetches"] != 1 for rec in SUMCHECKS):
-            raise AssertionError(f"{label}: a device-FS sumcheck fetched more than once")
+        if name == "device_fs" and any(rec["fetches"] != fs_fetches(rec, staged)
+                                       for rec in SUMCHECKS):
+            raise AssertionError(f"{label}: a device-FS sumcheck fetched other than "
+                                 f"{'once and its staged gathers' if staged else 'once'}")
         results.setdefault(name, (proof, r_y, v, tt.h.digest(), tt.get_challenge(cfg)))
     same = results["device_fs"] == results["per_round"]
     med = {name: [sorted(w[i] for w in ws)[len(ws) // 2] for i in (0, 1)]
@@ -1015,10 +1060,15 @@ RANK_TIMEOUT_S = 600  # a rank's whole run: start, fixture, prove, verify
 
 
 def rank_main(argv: list[str]) -> int:
-    """One rank of phase 9 (``chip_smoke.py --rank R ...``): join the group,
-    prove the 2^log_n R1CS (seed 5) on ``hierarchical_mesh`` over the ranks
-    and print its result as one ``[rank-result]`` JSON line; rank 0 also
-    verifies the proof and checks that the V_s[0] + 1 tamper is rejected."""
+    """One rank of phase 9 (``chip_smoke.py --rank R ...``): join the group;
+    run Spartan's two sumchecks of the 2^log_n R1CS (seed 5) under both
+    sharded drivers on ``hierarchical_mesh`` over the ranks
+    (compare_drivers: equal proofs and transcripts; the device-FS enqueue
+    loop under sync debug "error" where the group does not stage through
+    the host, so under NCCL the process's first collective falls inside a
+    checked loop); then prove it on that mesh and print the result as one
+    ``[rank-result]`` JSON line; rank 0 also verifies the proof and checks
+    that the V_s[0] + 1 tamper is rejected."""
     import argparse
 
     import torch
@@ -1027,6 +1077,7 @@ def rank_main(argv: list[str]) -> int:
     import zinc_tpu_torch as zt
     from zinc_tpu_torch.ops import _cuda
     from zinc_tpu_torch.parallel import hierarchical_mesh, init_distributed
+    from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
     from zinc_tpu_torch.timing import STAGES
 
     ap = argparse.ArgumentParser()
@@ -1044,8 +1095,16 @@ def rank_main(argv: list[str]) -> int:
     mesh = hierarchical_mesh(args.world, None if devices is None else len(devices), devices=devices)
     ccs, statement, wit, ztypes, _ = setup(1 << args.log_n, 5)
     dev = mesh.first
-    on_card = dev.type == "cuda"  # a fresh process: its peak memory is the prove's
+    on_card = dev.type == "cuda"
+    group = mesh.group
+    driver_walls = compare_drivers(f"rank {args.rank}", (ccs, statement, wit), mesh=mesh)
+    mesh.stats.clear()
+    group.calls = group.bytes = group.staged = 0
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     STAGES.clear()
+    SUMCHECKS.clear()
     _cuda.reset_launches()
     t = zt.KeccakTranscript()
     cfg = zt.draw_random_field(statement.public_input, t, ztypes.n_words, 4)
@@ -1053,12 +1112,14 @@ def rank_main(argv: list[str]) -> int:
     proof = zt.ZincProver(ztypes, mesh=mesh).prove(statement, wit, t, ccs, cfg)
     prove_s = time.perf_counter() - t0
     res = {
-        "rank": args.rank, "backend": mesh.group.backend, "mesh": repr(mesh), "shards": mesh.size,
+        "rank": args.rank, "backend": group.backend, "mesh": repr(mesh), "shards": mesh.size,
         "sha256": hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest(),
+        "transcript": t.h.digest().hex(),
         "prove_s": prove_s, "walls": {k: round(v, 4) for k, v in STAGES.items()},
-        "launches": dict(_cuda.LAUNCHES), "stats": mesh.stats,
-        "collective_calls": mesh.group.calls, "collective_bytes": mesh.group.bytes,
-        "on_card": on_card,
+        "launches": dict(_cuda.LAUNCHES), "stats": mesh.stats, "sumchecks": list(SUMCHECKS),
+        "staged": stages_through_host(mesh, dev),
+        "collective_calls": group.calls, "collective_bytes": group.bytes,
+        "staged_copies": group.staged, "driver_walls": driver_walls, "on_card": on_card,
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None,
     }
     if args.rank == 0:
@@ -1136,42 +1197,63 @@ def run_ranks(label: str, log_n: int, devices: str, backend: str | None, world: 
 
 
 def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commit: str) -> None:
-    """Every rank's proof hashes to ``single``'s sha256, rank 0 verified it
-    and saw the tamper rejected, both sumchecks ran sharded down to
-    HOST_TAIL entries a shard, the commit ran in ``commit``, and (on the
-    card) every kernel of the R1CS path launched on every rank."""
+    """Every rank's proof hashes to ``single``'s sha256 and every rank's
+    transcript ends in the same state, rank 0 verified the proof and saw
+    the tamper rejected, both sumchecks ran the device-FS driver sharded
+    down to HOST_TAIL entries a shard, with one fetch each and (where the
+    group stages through the host) a staged copy for each sharded round
+    and the hand-over, the commit ran in ``commit``, and (on the card)
+    every kernel of the R1CS path launched on every rank, fs_round once a
+    device round."""
     from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
 
     shards = results[0]["shards"]
     want = log_n - (shards.bit_length() - 1) - (HOST_TAIL.bit_length() - 1)
     for res in results:
-        log(f"[{label}] rank {res['rank']} ({res['backend']}): prove {res['prove_s']:.3f} s, sha256 "
+        who = f"[{label}] rank {res['rank']}"
+        log(f"{who} ({res['backend']}): prove {res['prove_s']:.3f} s, sha256 "
             f"{res['sha256']}, collectives {res['collective_calls']} all-gathers, "
-            f"{res['collective_bytes']} bytes in from the other ranks, peak device memory "
+            f"{res['collective_bytes']} bytes in from the other ranks, {res['staged_copies']} "
+            f"staged through the host, peak device memory "
             f"{res['peak_gib'] if res['peak_gib'] is None else round(res['peak_gib'], 3)} GiB, "
             f"{res['stats']}")
-        log(f"[{label}] rank {res['rank']} stage walls (s): {json.dumps(res['walls'])}")
-        log(f"[{label}] rank {res['rank']} launches: {res['launches']}")
+        log(f"{who} stage walls (s): {json.dumps(res['walls'])}")
+        log(f"{who} sumchecks: {res['sumchecks']}")
+        log(f"{who} launches: {res['launches']}")
+        log(f"{who} spartan.sumcheck1 / 2 by driver (s): {json.dumps(res['driver_walls'])}")
         if res["sha256"] != single["sha256"]:
-            raise AssertionError(f"[{label}] rank {res['rank']}'s proof differs from phase 3's")
+            raise AssertionError(f"{who}'s proof differs from phase 3's")
+        if res["transcript"] != results[0]["transcript"]:
+            raise AssertionError(f"{who}'s transcript differs from rank 0's")
         if res["stats"] != {"sharded_rounds": [want, want], "commit": [commit]}:
-            raise AssertionError(f"[{label}] rank {res['rank']}: the mesh was not used as "
-                                 f"expected: {res['stats']}")
+            raise AssertionError(f"{who}: the mesh was not used as expected: {res['stats']}")
+        recs = res["sumchecks"]
+        if ([r["driver"] for r in recs] != ["device_fs"] * 2
+                or any(r["fetches"] != fs_fetches(r, res["staged"]) for r in recs)):
+            raise AssertionError(f"{who}: not two device-FS sumchecks of the owed fetches: {recs}")
+        if not res["staged"] and res["staged_copies"]:
+            raise AssertionError(f"{who}: {res['staged_copies']} gathers went through the host")
         if res["on_card"]:
-            check_launches(res["launches"], PROCESS_KERNELS, GENERIC_KERNELS + ("fs_round",),
-                           f"{label} rank {res['rank']}")
+            check_launches(res["launches"], R1CS_KERNELS, GENERIC_KERNELS, who)
+            if res["launches"]["fs_round"] != sum(r["device_rounds"] for r in recs):
+                raise AssertionError(f"{who}: fs_round launched {res['launches']['fs_round']} "
+                                     f"times for {[r['device_rounds'] for r in recs]} rounds")
     log(f"[{label}] rank 0 verified in {results[0]['verify_s']:.3f} s, {results[0]['tamper']}; "
         f"every rank's proof is phase 3's")
 
 
 def phase9(single: dict, log_n: int = 20, devices: str = "cuda:0,cuda:0") -> list[dict]:
-    """A mesh over two processes: (a) two ranks on this one card, each with
-    the local devices ``devices`` on ``hierarchical_mesh(2, 2)``, over gloo
-    (NCCL refuses two ranks on one card): the 2^log_n R1CS (seed 5) hashes
-    to phase 3's sha256 on both ranks, rank 0 verifies it and rejects the
-    tamper, 12 of 20 rounds of each sumcheck run on the 4 shards and the
-    commit in 2 row blocks x 2 column blocks; (b) with two cards or more,
-    one rank per card over NCCL.  Returns each rank's launches."""
+    """A mesh over two processes, each rank on the device-FS driver
+    (check_ranks): (a) two ranks on this one card, each with the local
+    devices ``devices`` on ``hierarchical_mesh(2, 2)``, over gloo (NCCL
+    refuses two ranks on one card), which stages the round's sums through
+    the host: the 2^log_n R1CS (seed 5) hashes to phase 3's sha256 on both
+    ranks, rank 0 verifies it and rejects the tamper, 12 of 20 rounds of
+    each sumcheck run on the 4 shards and the commit in 2 row blocks x 2
+    column blocks; (b) with two cards or more, one rank per card over
+    NCCL, the round's sums gathered card to card: one fetch a sumcheck,
+    and the enqueue loops clean under sync debug "error".  Returns each
+    rank's launches."""
     import torch
 
     results = run_ranks("2 processes", log_n, devices, "gloo")
@@ -1181,6 +1263,9 @@ def phase9(single: dict, log_n: int = 20, devices: str = "cuda:0,cuda:0") -> lis
     if n_cards >= 2:
         results = run_ranks("2 processes, NCCL", log_n, "own", "nccl")
         check_ranks("2 processes, NCCL", results, single, log_n, "2 row blocks x 1 column blocks")
+        log("[2 processes, NCCL] no byte of a round's sums reached the host before a sumcheck's "
+            "one fetch, and each rank's first collective (NCCL's communicator started by "
+            "init_process_group) ran inside a device-FS enqueue loop under sync debug \"error\"")
         launches += [r["launches"] for r in results]
     else:
         log(f"[2 processes, NCCL] not run: torch.cuda.device_count() is {n_cards}, and one rank "

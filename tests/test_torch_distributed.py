@@ -2,10 +2,14 @@
 counterpart of tests/test_dcn_multiprocess.py: two processes run gloo over
 localhost, each with the local devices ["cpu", "cpu"], on
 ``hierarchical_mesh(2, 2)``, so every cross-shard step of the prove (the
-round residues, the hand-over, the commit's roots, the open's accumulators
-and column records) is an all-gather between the processes.  The children
-import the port only, with jax unimportable.  Each child has a timeout of
-its own, and a process that dies makes the other raise, not hang."""
+round sums, the hand-over, the commit's roots, the open's accumulators
+and column records) is an all-gather between the processes.  Both
+sumchecks run the device-FS driver (``parallel/fs.py``) on every rank,
+each rank's sponge squeezing over every shard's gathered sums, and are
+held against the per-round driver on the same tables.  The children
+import the port (and chip_smoke.py, which imports nothing else) only,
+with jax unimportable.  Each child has a timeout of its own, and a process
+that dies makes the other raise, not hang."""
 
 import os
 import random
@@ -19,9 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import zinc_tpu_torch as zt
 from tests.golden.gen import N, SEED
-from zinc_tpu_torch.parallel import Mesh, ProcessGroup, hierarchical_mesh, init_distributed
+from zinc_tpu_torch.parallel import (
+    Mesh,
+    ProcessGroup,
+    ShardedSumcheckExecutor,
+    hierarchical_mesh,
+    init_distributed,
+    wants_fs_sharded,
+)
+from zinc_tpu_torch.sumcheck.device_fs import start_fs
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "proof_2p10.bin"
@@ -34,8 +47,12 @@ _WORKER = textwrap.dedent(
     sys.path.insert(0, {root!r})
     rank, port, mode = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 
+    import hashlib, json
+    import torch
+    import chip_smoke
     import zinc_tpu_torch as zt
     from zinc_tpu_torch.parallel import hierarchical_mesh, init_distributed
+    from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
 
     if mode == "prove":  # torch's variables, set by the parent
         assert init_distributed(timeout_s=60)
@@ -48,17 +65,48 @@ _WORKER = textwrap.dedent(
     mesh = hierarchical_mesh(2, 2, devices=["cpu", "cpu"])
     assert mesh.axis_names == ("host", "chip") and mesh.shape == {{"host": 2, "chip": 2}}
     assert mesh.group.backend == "gloo" and mesh.local_rows == range(rank, rank + 1)
+    group = mesh.group
 
-    _, ccs, st, wit = zt.dummy_ccs_of_size({n}, random.Random({seed}), int_bits=62)
+    if mode == "gather":
+        x = torch.arange(6, dtype=torch.int32).reshape(2, 3) + 100 * rank
+        out = group.all_gather_stacked(x)
+        assert out.shape == (2, 2, 3) and out.dtype == x.dtype and out.device == x.device
+        for r in range(2):
+            assert torch.equal(out[r], torch.arange(6, dtype=torch.int32).reshape(2, 3) + 100 * r)
+        assert (group.calls, group.bytes, group.staged) == (1, 24, 0)
+        print("GATHER_OK", rank, flush=True)
+        raise SystemExit(0)
 
-    def prove(**kw):
+    if mode == "drivers":  # the golden's tables under both sharded drivers
+        chip_smoke.compare_drivers("2 processes", chip_smoke.setup({n}, {seed})[:3], device="cpu",
+                                   mesh=mesh)
+        print("DRIVERS_OK", rank, flush=True)
+        raise SystemExit(0)
+
+    def prove(st, wit, ccs, **kw):
         t = zt.KeccakTranscript()
         cfg = zt.draw_random_field(st.public_input, t, 1, 4)
-        return zt.ZincProver(zt.ZipTypes(1), **kw).prove(st, wit, t, ccs, cfg), cfg
+        proof = zt.ZincProver(zt.ZipTypes(1), **kw).prove(st, wit, t, ccs, cfg)
+        return proof, cfg, t
 
-    proof, cfg = prove(mesh=mesh)
+    def sumchecks():
+        return json.dumps([(r["driver"], r["fetches"], r["sharded_rounds"]) for r in SUMCHECKS])
+
+    if mode == "path_a":  # sumcheck 1 on the generic tier
+        ccs, st, wit = chip_smoke.degree4_fixture(1 << 10, 1234)
+        proof, cfg, _ = prove(st, wit, ccs, mesh=mesh)
+        digest = hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest()
+        assert digest == chip_smoke.PATH_A_SHA256_2P10, digest
+        assert mesh.stats["sharded_rounds"] == [2, 2]
+        print("PATH_A_OK", rank, group.calls, sumchecks(), flush=True)
+        raise SystemExit(0)
+
+    _, ccs, st, wit = zt.dummy_ccs_of_size({n}, random.Random({seed}), int_bits=62)
+    proof, cfg, t = prove(st, wit, ccs, mesh=mesh)
+    print("SUMCHECKS", sumchecks(), flush=True)
+    print("TRANSCRIPT", t.h.digest().hex(), flush=True)
     blob = zt.serialize_proof(proof, cfg)
-    host, _ = prove(backend="host")
+    host, _, _ = prove(st, wit, ccs, backend="host")
     assert blob == zt.serialize_proof(host, cfg), "the two-process proof differs from the host oracle"
     assert blob == open({golden!r}, "rb").read(), "the two-process proof differs from the golden"
     zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(st, proof, zt.KeccakTranscript(), ccs, cfg)
@@ -107,14 +155,71 @@ def _run_two(tmp_path, mode: str) -> list[tuple[int, str]]:
     return results
 
 
-def test_two_process_mesh_prove_is_the_golden(tmp_path):
+@pytest.fixture(scope="module")
+def proved(tmp_path_factory):
+    """Both ranks' (return code, output) of the "prove" run."""
+    return _run_two(tmp_path_factory.mktemp("prove"), "prove")
+
+
+def _line(out: str, tag: str) -> str:
+    found = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+    assert found, out[-3000:]
+    return found[-1][len(tag) + 1:]
+
+
+def test_two_process_mesh_prove_is_the_golden(proved):
     """Both ranks, started from torch's variables (MASTER_ADDR, MASTER_PORT,
     WORLD_SIZE, RANK), prove the 2^10 golden on a (2 host × 2 chip) mesh of
     CPU shards, equal to the port's host oracle; the verifier accepts."""
-    results = _run_two(tmp_path, "prove")
-    for rank, (rc, out) in enumerate(results):
+    for rank, (rc, out) in enumerate(proved):
         assert rc == 0, out[-3000:]
         assert f"DIST_OK {rank} {GOLDEN.stat().st_size}" in out, out[-3000:]
+
+
+def test_two_process_mesh_prove_runs_device_fs(proved):
+    """The golden prove on two processes runs both sumchecks on the device-FS
+    driver on each rank, 2 rounds of each on the 4 shards and one fetch
+    each (gloo gathers CPU tensors as they are: nothing is staged), in 11
+    all-gathers a rank; both ranks' transcripts end in the same sponge."""
+    digests = []
+    for rank, (rc, out) in enumerate(proved):
+        assert rc == 0, out[-3000:]
+        assert _line(out, "SUMCHECKS") == '[["device_fs", 1, 2], ["device_fs", 1, 2]]'
+        assert _line(out, f"DIST_OK {rank}").split()[1] == "11"
+        digests.append(_line(out, "TRANSCRIPT"))
+    assert digests[0] == digests[1]
+
+
+def test_two_process_drivers_agree(tmp_path):
+    """On each rank, Spartan's two sumchecks of the golden circuit under the
+    sharded device-FS driver and under the per-round ``prove_sharded``, on
+    the same tables from clones of one transcript: equal proofs, r_y, v and
+    transcript states (chip_smoke.compare_drivers, which also checks each
+    run's drivers and the device-FS runs' single fetch)."""
+    for rank, (rc, out) in enumerate(_run_two(tmp_path, "drivers")):
+        assert rc == 0, out[-3000:]
+        assert f"DRIVERS_OK {rank}" in out, out[-3000:]
+
+
+def test_two_process_path_a_hashes_to_the_pin(tmp_path):
+    """Path A at 2^10 (sumcheck 1 on the generic tier, the plain versions of
+    K7/K10) on two processes: both ranks' proofs hash to
+    PATH_A_SHA256_2P10, both sumchecks on the device-FS driver, in 11
+    all-gathers a rank."""
+    for rank, (rc, out) in enumerate(_run_two(tmp_path, "path_a")):
+        assert rc == 0, out[-3000:]
+        calls, recs = _line(out, f"PATH_A_OK {rank}").split(" ", 1)
+        assert calls == "11" and recs == '[["device_fs", 1, 2], ["device_fs", 1, 2]]'
+
+
+def test_all_gather_stacked_is_in_rank_order(tmp_path):
+    """``ProcessGroup.all_gather_stacked`` returns every rank's tensor stacked
+    in rank order, on the input's device and of its dtype, and counts one
+    call and the bytes in from the other rank; a CPU tensor under gloo is
+    not staged."""
+    for rank, (rc, out) in enumerate(_run_two(tmp_path, "gather")):
+        assert rc == 0, out[-3000:]
+        assert f"GATHER_OK {rank}" in out, out[-3000:]
 
 
 def test_a_rank_that_exits_makes_the_other_raise(tmp_path):
@@ -175,3 +280,45 @@ def test_a_process_mesh_must_have_a_row_per_process():
         zt.ZincProver(zt.ZipTypes(1), mesh=mesh)
     with pytest.raises(ValueError, match="no row"):
         Mesh(two_rows, ("host", "chip"), ProcessGroup(2, 3, "gloo", "cpu"))
+
+
+def _rank0_mesh(world: int = 2, backend: str = "gloo", device: str = "cpu") -> Mesh:
+    rows = np.empty((world, 2), dtype=object)
+    rows[0] = [device, device]
+    return Mesh(rows, ("host", "chip"), ProcessGroup(0, world, backend, device))
+
+
+def test_a_process_mesh_takes_the_device_fs_driver():
+    """``wants_fs_sharded`` decides by the shape alone, as the reference
+    does: a mesh over processes whose shards divide the entries takes the
+    device-FS driver (and one whose shards do not, does not); ``start_fs``
+    accepts its executor, whose blocks are rank 0's two of four."""
+    mesh = _rank0_mesh()
+    ccs, statement, wit, _, cfg = chip_smoke.setup(1 << 10, 5)
+    comb = [(cfg.one(), (0, 1))]
+    assert wants_fs_sharded(cfg, comb, 1 << 10, mesh)
+    assert not wants_fs_sharded(cfg, comb, 6, mesh)
+    tables = torch.zeros((2, 1 << 10, 2 * cfg.n64), dtype=torch.int32)
+    ex = ShardedSumcheckExecutor(cfg, tables, 2, comb, mesh)
+    assert ex.group is mesh.group and ex.n_blocks == 4 and len(ex.blocks) == 2
+    run = start_fs(zt.KeccakTranscript(), ex, 10, 2)
+    assert run.n_dev == 4 and run.rs.shape == (4, 2 * cfg.n64)
+
+
+def test_nccl_gathers_only_on_the_groups_card():
+    """Under NCCL ``all_gather_stacked`` refuses a tensor that does not lie on
+    the group's card, before any collective (nothing is staged quietly)."""
+    group = ProcessGroup(0, 2, "nccl", "cuda:0")
+    with pytest.raises(ValueError, match="NCCL"):
+        group.all_gather_stacked(torch.zeros(4, dtype=torch.int32))
+    assert (group.calls, group.bytes, group.staged) == (0, 0, 0)
+
+
+def test_gloo_stages_only_tensors_on_a_card():
+    """``ProcessGroup.stages`` says which gathers go through the host: under
+    gloo those of tensors on a card, never those of CPU tensors, and never
+    under NCCL (which gathers card to card or refuses)."""
+    gloo, nccl = ProcessGroup(0, 2, "gloo", "cpu"), ProcessGroup(0, 2, "nccl", "cuda:0")
+    assert gloo.stages("cuda:0") and gloo.stages(torch.device("cuda", 1))
+    assert not gloo.stages("cpu")
+    assert not nccl.stages("cuda:0") and not nccl.stages("cpu")

@@ -6,11 +6,11 @@ block-sharded over the mesh (``sumcheck.py``), and the Zip codeword matrix
 is row-sharded, or rows × columns on a 2-D mesh (``zip.py``); proofs are
 byte-identical to one device's.  ``init_distributed`` and
 ``hierarchical_mesh`` give a ("host", "chip") mesh whose rows are processes
-of ``torch.distributed`` (``mesh.py``).  In one process the sumchecks run
-with the Fiat-Shamir sponge on the mesh's first device (``fs.py``), one
-host sync a sumcheck; over processes, one a round
-(``sumcheck.py``).  Importing it loads no CUDA code
-and starts no process group.
+of ``torch.distributed`` (``mesh.py``).  The sumchecks run with the
+Fiat-Shamir sponge on the mesh's first device (``fs.py``), one host sync
+a sumcheck; over processes every process runs the same sponge on the
+all-gathered sums.  Importing it loads no CUDA code and starts no process
+group.
 """
 
 from .mesh import (

@@ -1,5 +1,5 @@
 """The sharded sumcheck with device-resident Fiat-Shamir: one sync a sumcheck
-on a mesh in one process.
+on a mesh.
 
 The port of ``zinc_tpu/parallel/fs.py``.  The tables are split into the
 mesh's D contiguous blocks as for the per-round sharded sumcheck
@@ -11,16 +11,23 @@ device-to-device copies, where ``fs_round`` adds them mod q, forms the
 round's values and squeezes; and r goes back to every shard the same way
 before the shard's next fold reads it.  None of this passes through the
 host, and torch orders every cross-device copy after the producing stream's
-work and before the consuming stream's.  The reference replicates the
-sponge on every device after a psum; here it runs once, on the first
-device, and its r is copied out.  Once a shard's block has at most
+work and before the consuming stream's.  In one process the sponge runs
+once, on the first device, and its r is copied out (the reference
+replicates it on every device after a psum).  Once a shard's block has at most
 ``HOST_TAIL`` entries the blocks are joined on the first device (a
 ``torch.cat`` on the card), and its device rounds go on there until the
 one fetch.
 
-A mesh over processes (``mesh.group``) keeps the per-round executor
-(``parallel.prove_sharded``): its round residues are all-gathered over
-gloo as CPU tensors, so every round crosses the host anyway.
+On a mesh over processes (``mesh.group``) each process does this for its
+own shards, and each round all-gathers the processes' stacked sums in rank
+order onto its first device (``ProcessGroup.all_gather_stacked``) before
+``fs_round``; every process then runs the same sponge on the same sums, as
+the reference replicates it after its psum, so r needs no broadcast.  The
+hand-over all-gathers the blocks the same way.  Under NCCL all of it stays
+on the cards; gloo stages a card's tensors through the host, and each
+staged copy counts as a fetch in ``executor.SUMCHECKS``.  The per-round
+driver stays reachable through ``spartan_prove_device(...,
+sumcheck=prove_sharded)``.
 """
 
 from __future__ import annotations
@@ -34,11 +41,12 @@ from .sumcheck import ShardedSumcheckExecutor
 
 
 def wants_fs_sharded(cfg: FieldConfig, comb, b: int, mesh: Mesh, eq_idx: int | None = None) -> bool:
-    """True when the one-sync sharded driver takes this shape: a mesh in one
-    process whose D shards divide the 2^nvars entries (else the tables stay
-    whole on the first device, and ``prove_sharded`` runs them there), and,
-    with ``eq_idx``, a combination the Gruen rounds take."""
-    if mesh.group is not None or b % mesh.size:
+    """True when the one-sync sharded driver takes this shape: a mesh, in one
+    process or over several, whose D shards divide the 2^nvars entries (else
+    the tables stay whole on the first device, and ``prove_sharded`` runs
+    them there), and, with ``eq_idx``, a combination the Gruen rounds take.
+    As in the reference, only the shape decides."""
+    if b % mesh.size:
         return False
     return eq_idx is None or wants_gruen(cfg, comb, eq_idx, b)
 

@@ -17,9 +17,11 @@ whose row r is rank r's local devices.  Such a mesh carries a
 :class:`ProcessGroup`; a process holds only its own row's shards, and
 every step that crosses shards all-gathers, in rank order, host tensors
 (gloo) or tensors on the rank's card (NCCL, where every rank has a card of
-its own): the sumcheck's round residues and its hand-over blocks, the
-commit's row roots, the open's integer accumulators and column records.
-Importing this module starts no process group.
+its own): the sumcheck's round sums and its hand-over blocks
+(:meth:`ProcessGroup.all_gather_stacked`, which leaves them where they
+lie), the commit's row roots, the open's integer accumulators and column
+records (:meth:`ProcessGroup.all_gather`, to the host).  Importing this
+module starts no process group.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ class ProcessGroup:
     """The processes of a mesh: this process's ``rank`` of ``world``, the
     torch.distributed ``backend`` and the device its collectives run on (the
     CPU for gloo, the rank's card for NCCL).  ``calls`` and ``bytes`` count
-    the all-gathers and the bytes each brought from the other processes."""
+    the all-gathers and the bytes each brought from the other processes;
+    ``staged`` counts the tensors :meth:`all_gather_stacked` copied from a
+    card to the host because the backend gathers only there."""
 
     def __init__(self, rank: int, world: int, backend: str, device):
         self.rank = rank
@@ -47,6 +51,16 @@ class ProcessGroup:
         self.device = torch.device(device)
         self.calls = 0
         self.bytes = 0
+        self.staged = 0
+
+    def stages(self, device) -> bool:
+        """True when :meth:`all_gather_stacked` copies a tensor on ``device``
+        through the host: gloo gathers only there, so a tensor on a card."""
+        return self.backend != "nccl" and torch.device(device).type != "cpu"
+
+    def _count(self, x: torch.Tensor) -> None:
+        self.calls += 1
+        self.bytes += x.numel() * x.element_size() * (self.world - 1)
 
     def all_gather(self, x: torch.Tensor) -> list[torch.Tensor]:
         """``x`` of every process (each the same shape and dtype), in rank
@@ -56,9 +70,36 @@ class ProcessGroup:
         x = x.to(self.device).contiguous()
         out = [torch.empty_like(x) for _ in range(self.world)]
         dist.all_gather(out, x)
-        self.calls += 1
-        self.bytes += x.numel() * x.element_size() * (self.world - 1)
+        self._count(x)
         return [t.cpu() for t in out]
+
+    def all_gather_stacked(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every process stacked in rank order, (world, *x.shape), on
+        ``x.device``.  Under NCCL ``x`` must lie on the group's card, and the
+        gather stays there with no host wait: torch makes the current stream
+        wait on NCCL's before its next launch.  Under gloo a CPU tensor is
+        gathered as it is, and a tensor on a card is staged through the host
+        (one copy each way, counted in ``staged``)."""
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        if self.backend == "nccl":
+            if x.device != self.device:
+                raise ValueError(f"an NCCL all-gather of a tensor on {x.device}, not on the "
+                                 f"group's {self.device}")
+            out = torch.empty((self.world, *x.shape), dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(out, x)
+        else:
+            staged = self.stages(x.device)
+            src = x.cpu() if staged else x
+            parts = [torch.empty_like(src) for _ in range(self.world)]
+            dist.all_gather(parts, src)
+            out = torch.stack(parts)
+            if staged:
+                self.staged += 1
+                out = out.to(x.device)
+        self._count(x)
+        return out
 
     def all_gather_array(self, a: np.ndarray) -> list[np.ndarray]:
         """A numpy array of every process, in rank order (sent as bytes)."""
@@ -187,8 +228,11 @@ def init_distributed(
         if card is None:
             raise ValueError("NCCL needs a card of its own for every process of the host")
         torch.cuda.set_device(card)
+    # device_id starts NCCL's communicator here, not at the first collective,
+    # which may fall inside a sumcheck's enqueue loop that must not sync
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            device_id=torch.device("cuda", card) if backend == "nccl" else None)
     return dist.get_world_size() > 1
 
 

@@ -14,9 +14,9 @@ single-device rounds and the host tail finish.  At 2^20 on 4 shards that is
 
 On a mesh over several processes (``mesh.group``) every process holds the
 whole tables (its setups ran on its first device) and keeps only its own
-shards' blocks; the executor all-gathers each round's residues, and the
-blocks at the hand-over, in rank order, so every process holds the same
-sums before it squeezes.
+shards' blocks; the executor all-gathers each round's residues (to the
+host), and the blocks at the hand-over (where they lie), in rank order, so
+every process holds the same sums before it squeezes.
 
 One executor stands for the reference's tiers: ``ShardedSumcheckExecutor``
 (XLA body), ``ShardedLmSumcheckExecutor`` and
@@ -26,8 +26,8 @@ pre-scaled suffix buffers from ``build_sharded_suffix``) and their chooser
 the single-device eq levels, and Gruen applies on a mesh wherever it applies
 on one device (``executor.wants_gruen``), so ``wants_gruen_sharded`` has no
 counterpart.  :func:`prove_sharded` is the per-round driver over the
-shards; in one process the main path takes ``parallel/fs.py``, the same
-executor under the device-resident Fiat-Shamir driver.
+shards; the main path takes ``parallel/fs.py``, the same executor under
+the device-resident Fiat-Shamir driver, in one process or over several.
 """
 
 from __future__ import annotations

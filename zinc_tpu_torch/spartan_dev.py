@@ -3,12 +3,12 @@
 The port of ``zinc_tpu/spartan_dev.py``.  The witness-sized state lives on
 the device: the field-projected z, the Mz tables, the eq tables and the
 sumcheck folds.  Each sumcheck takes the driver the reference picks
-(``spartan_dev.py:100-137``): on one device, or on a mesh in one process
-where ``wants_fs_sharded`` holds, device-resident Fiat-Shamir
-(``sumcheck/device_fs.py``, ``parallel/fs.py``), one host sync a
-sumcheck; on a mesh over processes, or one whose shards do not divide the
-hypercube, the per-round sharded executor (``parallel/sumcheck.py``), one
-sync a round.  The folded values double as V_s (sumcheck 1) and as the PCS
+(``spartan_dev.py:100-137``): on one device, or on a mesh (in one
+process or over several) where ``wants_fs_sharded`` holds,
+device-resident Fiat-Shamir (``sumcheck/device_fs.py``,
+``parallel/fs.py``), one host sync a sumcheck; on a mesh whose shards do
+not divide the hypercube, the per-round sharded executor
+(``parallel/sumcheck.py``), one sync a round.  The folded values double as V_s (sumcheck 1) and as the PCS
 opening value z̃(r_y) (sumcheck 2).
 """
 

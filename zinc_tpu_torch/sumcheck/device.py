@@ -6,9 +6,9 @@ the device, fetches the round's sums (the one sync of the round), and lets
 the host ``KeccakTranscript`` absorb the d+1 evaluations and squeeze r,
 exactly as ``zinc_tpu/sumcheck/prover.py:87-118`` does.  The main path
 takes ``device_fs.py`` instead (the sponge on the device, one sync a
-sumcheck, the same bytes); this driver stays for meshes over processes,
-whose rounds gather their sums over the host anyway, for the bench of path
-B and for the tests, which hold the two drivers equal.
+sumcheck, the same bytes, on meshes over processes too); this driver
+stays for the bench of path B and for the tests, which hold the two
+drivers equal.
 
 Gruen (sumcheck 1): the eq MLE never enters the fold.  Round j evaluates
 s_j(t) = pref_j · c_j(t) · Σ_i coeff_i · Σ_p E_j[p] · Π_{m∈S_i} M_m(t, p)

@@ -199,12 +199,19 @@ def fs_round(ctx: DeviceField, state: torch.Tensor, pos: int, sums: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _on_home(sums: list[torch.Tensor], home: torch.device) -> torch.Tensor:
-    """The round's block sums as one (D, n_terms, n_pts, n32) tensor on the
-    first block's device (device-to-device copies)."""
+def _on_home(ex: DeviceSumcheckExecutor, sums: list[torch.Tensor]) -> torch.Tensor:
+    """The round's sums of every block as one (D, n_terms, n_pts, n32) tensor
+    on the first block's device: the local blocks' by device-to-device
+    copies, and, while the blocks are spread over processes, every
+    process's, all-gathered in rank order."""
+    home = ex.home
     if len(sums) == 1 and sums[0].device == home:
-        return sums[0].contiguous()[None]
-    return torch.stack([s.to(home) for s in sums])
+        local = sums[0].contiguous()[None]
+    else:
+        local = torch.stack([s.to(home) for s in sums])
+    if ex.group is None:
+        return local
+    return ex.gather_stacked(local).flatten(0, 1)
 
 
 @dataclass
@@ -229,9 +236,6 @@ def start_fs(transcript: KeccakTranscript, ex: DeviceSumcheckExecutor, nvars: in
              degree: int) -> FsRun:
     """Absorb nvars and the degree on the host, export the sponge to the
     first block's device and upload the round's constants."""
-    if ex.group is not None:
-        raise ValueError("device Fiat-Shamir runs in one process; a mesh over processes "
-                         "takes the per-round executor (parallel.prove_sharded)")
     cfg, ctx, home = ex.cfg, ex.ctx, ex.home
     _absorb_nvars_degree(transcript, nvars, degree, cfg)
     n_dev = device_rounds(ex.size, nvars)
@@ -249,13 +253,18 @@ def start_fs(transcript: KeccakTranscript, ex: DeviceSumcheckExecutor, nvars: in
 
 def enqueue_fs_rounds(run: FsRun) -> None:
     """Queue every device round: the executor's fold (by the challenge in
-    ``run.rs``) and evaluation, then :func:`fs_round`.  Nothing here waits
-    for the device or copies from it."""
+    ``run.rs``) and evaluation, then :func:`fs_round` over every block's
+    sums.  Nothing here waits for the device or copies from it, except a
+    gloo group's all-gather of sums on a card, which is staged through the
+    host (and counted as a fetch).  Over processes every rank runs the same
+    sponge on the same gathered sums, so r needs no broadcast; the gather
+    returns before ``fs_round`` is queued, so no rank squeezes without
+    every shard's sums."""
     ex, cfg = run.ex, run.ex.cfg
     pos = run.sponge.pos
     for rnd in range(run.n_dev):
         sums = ex.launch_round(run.rs[rnd - 1] if rnd else None)
-        fs_round(ex.ctx, run.sponge.state, pos, _on_home(sums, ex.home), run.coeffs, run.evals,
+        fs_round(ex.ctx, run.sponge.state, pos, _on_home(ex, sums), run.coeffs, run.evals,
                  run.rs, rnd, run.beta, run.pref)
         pos = (pos + round_absorb_bytes(cfg, run.degree)) % RATE
     run.sponge.pos = pos
@@ -269,8 +278,8 @@ def finish_fs(transcript: KeccakTranscript, run: FsRun):
     rest = ex.remainder(run.pref)
     parts = (run.evals, run.rs, run.sponge.state, rest)
     words = fm.to_numpy(torch.cat([x.reshape(-1) for x in parts]))
-    SUMCHECKS.append({"driver": "device_fs", "device_rounds": run.n_dev, "fetches": 1,
-                      "sharded_rounds": ex.sharded_rounds})
+    SUMCHECKS.append({"driver": "device_fs", "device_rounds": run.n_dev,
+                      "fetches": 1 + ex.fetches, "sharded_rounds": ex.sharded_rounds})
     ev, rw, st, arr = np.split(words, np.cumsum([x.numel() for x in parts])[:-1])
     run.sponge.export_to_host(transcript.h, st)
     ev = ev.reshape(run.n_dev, run.degree + 1, n32)
@@ -283,7 +292,8 @@ def finish_fs(transcript: KeccakTranscript, run: FsRun):
 def prove_fs_with_executor(transcript: KeccakTranscript, ex: DeviceSumcheckExecutor, nvars: int,
                            degree: int):
     """The device-FS sumcheck over ``ex``'s blocks (one device, or a mesh's
-    shards in one process): (proof, randomness, folded host MLEs)."""
+    shards, in one process or over several): (proof, randomness, folded
+    host MLEs)."""
     run = start_fs(transcript, ex, nvars, degree)
     enqueue_fs_rounds(run)
     return finish_fs(transcript, run)

@@ -41,11 +41,13 @@ ratchet unchanged.  With one block, this is the single-device sumcheck.
 
 **Processes.**  With a ``group`` (``parallel.mesh.ProcessGroup``) the
 blocks are this process's, blocks [rank·n, (rank+1)·n) of the D = n·world
-blocks of every process.  Each round all-gathers the blocks' residues as
-CPU int tensors, in rank order, so every process adds the same D residues
-before the host squeezes; the hand-over and the final values all-gather the
-blocks themselves, after which every process runs the same rounds on its
-whole table, with no more collectives.
+blocks of every process.  Every round's sums are all-gathered in rank
+order, so every process adds the same D residues before it squeezes: the
+per-round driver gathers them to the host (:meth:`_values`), the
+device-FS driver on the first block's device (``device_fs.py``).  The
+hand-over all-gathers the blocks themselves where they lie (under NCCL
+the joined table never leaves the card), after which every process runs
+the same rounds on its whole table, with no more collectives.
 
 The kernels run on the tables' device: a CPU tensor takes their plain
 versions, so there is one executor for every platform.
@@ -149,7 +151,7 @@ class DeviceSumcheckExecutor:
         self.size = sum(b.shape[1] for b in self.blocks) * world  # entries a table
         self.folds = 0
         self.sharded_rounds = 0  # rounds evaluated on more than one block
-        self.fetches = 0  # copies of round sums or tables to the host
+        self.fetches = 0  # copies of round sums or tables to the host, staged ones included
         self.launched = 0  # device rounds queued (launch_round)
         self._host_mles: list[list[Fp]] | None = None
         if eq_beta is not None:
@@ -165,14 +167,23 @@ class DeviceSumcheckExecutor:
 
     # -- the host tail -------------------------------------------------------
 
+    def gather_stacked(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every process, (world, *x.shape) in rank order on x's
+        device; a copy the group stages through the host counts as a fetch."""
+        staged = self.group.staged
+        out = self.group.all_gather_stacked(x)
+        self.fetches += self.group.staged - staged
+        return out
+
     def _joined(self) -> torch.Tensor:
         """The whole tables on the first block's device (every process's
-        blocks, in rank order); the blocks are no longer spread after it."""
+        blocks in rank order, each process's in local order: the global
+        shard order); the blocks are no longer spread after it."""
         if self.n_blocks == 1:
             return self.blocks[0]
         local = torch.cat([b.to(self.home) for b in self.blocks], dim=1)
         if self.group is not None:
-            local = torch.cat(self.group.all_gather(local), dim=1).to(self.home)
+            local = torch.cat(self.gather_stacked(local).unbind(0), dim=1)
             self.group = None
         self.n_blocks = 1
         return local
