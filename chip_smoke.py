@@ -1,17 +1,20 @@
 """Drive the PyTorch/CUDA port of Zinc on one GPU and check it end to end.
 
     python3 chip_smoke.py            # every phase, as the quick proof that the port runs
+    python3 chip_smoke.py --cards    # phases 7(d) and 9(b) alone, on two cards or more
     python3 chip_smoke.py --rank R --world W --port P --log-n L --devices D
                                      # one rank of phase 9 (started by phase 9 itself)
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 0. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   kernels' build: the 6-, 8- and 16-word libraries (n64 = 3, 4, 8), every
-   nvcc process at once, with each kernel's registers and spills, and the
-   instruction mix (IMAD, IADD3.X, other) in the SASS of mont_mul_kernel
-   (one product) and of the generic kernels, whole and in their largest
-   basic blocks (a pass's products);
+   kernels' build: the 6-, 8- and 16-word libraries (n64 = 3, 4, 8) and
+   the BLAKE3 library, every nvcc process at once, with each kernel's
+   registers and spills, and the instruction mix (IMAD, IADD3.X, other)
+   in the SASS of mont_mul_kernel (one product), of the generic kernels,
+   of eq_level_kernel and of blake3_leaves_kernel (its largest block: a
+   leaf's compression), whole and in their largest basic blocks (a pass's
+   products);
 1. each CUDA kernel against its plain PyTorch version at the shapes the
    paths below give it (2^20 tables, path B's last fold at 7 × 128) at
    n64 = 4 and n64 = 3: exactly equal (every value is an integer residue),
@@ -22,6 +25,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    device-only times; then fold_round_eval at each of the 13 round shapes of
    paths A and B, with the sums over the rounds; fold and fold_round_eval
    also with r on the card (the device-resident Fiat-Shamir loop's form);
+   the eq table of 2^20 entries (eq_level, one launch a level) at 8, 6 and
+   16 words, and the BLAKE3 Merkle tree of the 2^20 commit (1024 rows of
+   2048 codewords of 8 words in int64 lanes): the leaves launch, the merge
+   launch and the whole tree;
 1b. fs_round (the device-resident Fiat-Shamir round, csrc/fs.cu) against
    its plain version, equal in every word it writes, at the shapes the
    paths give it (bench_kernels.fs_cases: the R1CS sumchecks on one block
@@ -144,12 +151,25 @@ KERNELS = {
                  "zinc_tpu/sumcheck/device_fs.py:85 (_make_fs_step, the XLA Fiat-Shamir step); "
                  "zinc_tpu/ops/keccak_kernel.py:64 (keccak_f1600_device), :183 (absorb_dyn), "
                  ":206 (digest_dyn)"),
+    "blake3_leaves": ("cuda", "zinc_tpu_torch/csrc/blake3.cu",
+                      "zinc_tpu/ops/blake3_kernel.py:160 (merkle_tree_device, XLA, not Pallas): "
+                      ":48 (compress_batch), :98 (hash_single_chunk_batch), :129 "
+                      "(limbs16_to_msg_words), and its first merges"),
+    "blake3_merge": ("cuda", "zinc_tpu_torch/csrc/blake3.cu",
+                     "zinc_tpu/ops/blake3_kernel.py:117 (merge_pairs_batch, XLA, not Pallas), "
+                     ":48 (compress_batch), in merkle_tree_device's level loop (:171)"),
+    "eq_level": ("cuda", "zinc_tpu_torch/csrc/mont_mul.cu",
+                 "zinc_tpu/poly/device.py:70 (_eq_table_device, XLA, not Pallas); "
+                 "zinc_tpu/sumcheck/mxu_exec.py:835 (build_eq_suffix_flat, XLA, not Pallas)"),
 }
 # the kernels each path must launch (and the dummy R1CS none of the generic tier),
-# on one device, on a mesh and on every rank of a mesh over processes
-R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round")
+# on one device, on a mesh and on every rank of a mesh over processes: every
+# prove builds eq tables and commits; a commit whose rows are deeper than a
+# leaves launch merges also launches blake3_merge (with_merges)
+EQ_TREE_KERNELS = ("eq_level", "blake3_leaves")
+R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round") + EQ_TREE_KERNELS
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
-PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS
+PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS + EQ_TREE_KERNELS
 PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS  # path B's bench keeps the per-round executor
 GENERIC_ROWS = GENERIC_KERNELS  # the phase-1 rows that also report an issue-slot floor
 
@@ -169,6 +189,14 @@ PATH_A_SHA256_2P20 = "6f4609087fe5211bfef31dc0e5bb085adf31ab652146ea218bf1c51002
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def with_merges(kernels: tuple, log_n: int) -> tuple:
+    """``kernels`` and, where the commit of a 2^log_n CCS has rows of more
+    codewords (2^(log_n/2 + 1)) than a leaves launch merges up, blake3_merge."""
+    from zinc_tpu_torch.ops.blake3 import LEAF_LEVELS
+
+    return kernels + (("blake3_merge",) if log_n // 2 + 1 > LEAF_LEVELS else ())
 
 
 def setup(n: int, seed: int, n64: int = 4):
@@ -221,13 +249,14 @@ def phase0() -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}, "
         f"max SM clock {info['max_sm_mhz']:.0f} MHz")
     t0 = time.perf_counter()
-    _cuda.build(BUILD_WIDTHS)
-    log(f"kernel build {time.perf_counter() - t0:.1f} s, widths {list(BUILD_WIDTHS)} "
-        f"(cached {[_cuda.BUILD[n]['cached'] for n in BUILD_WIDTHS]})")
-    for n in BUILD_WIDTHS:
-        for line in ptxas_summary(_cuda.BUILD[n]["ptxas"]):
+    targets = BUILD_WIDTHS + (_cuda.BLAKE3,)
+    _cuda.build(targets)
+    log(f"kernel build {time.perf_counter() - t0:.1f} s, widths {list(BUILD_WIDTHS)} and "
+        f"{_cuda.BLAKE3} (cached {[_cuda.BUILD[t]['cached'] for t in targets]})")
+    for t in targets:
+        for line in ptxas_summary(_cuda.BUILD[t]["ptxas"]):
             log(f"[ptxas] {line}")
-    for line in sass_mix(_cuda.BUILD[8]["path"]):
+    for line in sass_mix(_cuda.BUILD[8]["path"]) + sass_mix(_cuda.BUILD[_cuda.BLAKE3]["path"]):
         log(f"[sass] {line}")
     from zinc_tpu_torch.sumcheck.kernels import GENERIC_LIMITS
 
@@ -237,7 +266,7 @@ def phase0() -> dict:
     return info
 
 
-SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel")
+SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel", "eq_level_kernel", "blake3_leaves_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -402,35 +431,54 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
     for cfg, log_n in ((cfg8, 20), (cfg6, 20)):
         ctx = device_field(cfg)
         for c in bk.cases(ctx, "cuda", log_n):
-            got, want = _flat(c["kernel"]()), _flat(c["plain"]())
-            torch.cuda.synchronize()
-            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
-                      for g, w in zip(got, want))
-            exact = err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))
-            ms, single_ms = bk.device_ms(c["kernel"]), _time_ms(c["kernel"])
-            plain_ms = _time_ms(c["plain"], 3)
-            bound, by = bk.bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"])
-            floor = ""
-            if ctx.n32 == 8 and c["name"] in GENERIC_ROWS and info["per_product"]:
-                floor = (f" issue-slot floor "
-                         f"{issue_floor_ms(c['full'], c['lazy'], info['per_product'], info['max_sm_mhz']):.4f} ms")
-            if c["launch_bound"]:
-                floor += f" bound with the launch floor {max(bound, floor_ms):.4f} ms"
-            log(f"[kernel] {c['name']} ({c['shape']}, {ctx.n32} words): shapes "
-                f"{[tuple(g.shape) for g in got]} max_abs_err {err} device-only {ms:.4f} ms "
-                f"single {single_ms:.4f} ms plain {plain_ms:.4f} ms bound {bound:.4f} ms ({by}; "
-                f"{c['full']} + {c['lazy']} unreduced products, {c['bytes']} bytes) "
-                f"share {bound / ms:.3f}{floor}")
-            if not exact:
-                raise AssertionError(f"{c['name']}: kernel disagrees with its plain version")
-            row = results.setdefault(c["name"], {
-                "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": by, "library_ms": None, "single_ms": single_ms,
-            })
-            row["max_abs_err"] = max(row["max_abs_err"], err)
+            _check_case(c, ctx.n32, info, floor_ms, results)
         compare_generic(ctx, log_n)
+    _check_case(bk.eq_case(device_field(_field_of_words(16)), "cuda"), 16, info, floor_ms, results)
+    for c in bk.merkle_cases("cuda"):
+        _check_case(c, 0, info, floor_ms, results)
     k10_rounds(device_field(cfg8), info)
     return results
+
+
+def _check_case(c: dict, n32: int, info: dict, floor_ms: float, results: dict) -> None:
+    """One bench_kernels case: the kernel exactly equal to its plain version,
+    its device-only, single-launch and plain times and its bound, logged;
+    the first case of each kernel fills its kernels-line row in
+    ``results``.  ``n32`` is the field's words (0: a kernel of no field)."""
+    import torch
+
+    from zinc_tpu_torch.benches import bench_kernels as bk
+
+    got, want = _flat(c["kernel"]()), _flat(c["plain"]())
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+              for g, w in zip(got, want))
+    exact = len(got) == len(want) and err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))
+    ms, single_ms = bk.device_ms(c["kernel"]), _time_ms(c["kernel"])
+    plain_ms = _time_ms(c["plain"], 3)
+    bound, by = bk.bound_ms(n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"], c["int_ops"])
+    floor = ""
+    if n32 == 8 and c["name"] in GENERIC_ROWS and info["per_product"]:
+        floor = (f" issue-slot floor "
+                 f"{issue_floor_ms(c['full'], c['lazy'], info['per_product'], info['max_sm_mhz']):.4f} ms")
+    if c["launch_bound"]:
+        floor += (f" bound with the launch floor of {c['launches']} launches "
+                  f"{max(bound, c['launches'] * floor_ms):.4f} ms")
+    work = (f"{c['int_ops'][0]} ALU-only of {c['int_ops'][1]} integer instructions"
+            if c["int_ops"][1] else f"{c['full']} + {c['lazy']} unreduced products")
+    shapes = [tuple(g.shape) for g in got]
+    log(f"[kernel] {c['name']} ({c['shape']}{f', {n32} words' if n32 else ''}): shapes "
+        f"{shapes if len(shapes) <= 4 else f'{shapes[:2]} ... {shapes[-1]} ({len(shapes)} tensors)'} "
+        f"max_abs_err {err} device-only {ms:.4f} ms single {single_ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms bound {bound:.4f} ms ({by}; {work}, {c['bytes']} bytes) "
+        f"share {bound / ms:.3f}{floor}")
+    if not exact:
+        raise AssertionError(f"{c['name']}: kernel disagrees with its plain version")
+    row = results.setdefault(c["name"], {
+        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "library_ms": None, "single_ms": single_ms,
+    })
+    row["max_abs_err"] = max(row["max_abs_err"], err)
 
 
 def k10_rounds(ctx, info: dict) -> None:
@@ -828,7 +876,8 @@ def _pinned(label: str, digest: str, want: str) -> None:
 
 def phase3(log_n: int) -> dict:
     ccs, statement, wit, _, _ = setup(1 << log_n, 5)
-    res = prove_verify_large(f"2^{log_n}", (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS)
+    res = prove_verify_large(f"2^{log_n}", (ccs, statement, wit), with_merges(R1CS_KERNELS, log_n),
+                             GENERIC_KERNELS)
     if log_n == 20:
         _pinned(f"2^{log_n}", res["sha256"], R1CS_SHA256_2P20)
     return res
@@ -849,8 +898,8 @@ def phase5(log_n: int) -> dict:
     if digest != PATH_A_SHA256_2P10:
         raise AssertionError(f"path A 2^10 proof hashes to {digest}, not {PATH_A_SHA256_2P10}")
     check_launches(launches, PATH_A_KERNELS, ("round_eval_gruen",), "path A 2^10")
-    res = prove_verify_large(f"path A 2^{log_n}", degree4_fixture(1 << log_n, 5), PATH_A_KERNELS,
-                             ("round_eval_gruen",))
+    res = prove_verify_large(f"path A 2^{log_n}", degree4_fixture(1 << log_n, 5),
+                             with_merges(PATH_A_KERNELS, log_n), ("round_eval_gruen",))
     if log_n == 20:
         _pinned(f"path A 2^{log_n}", res["sha256"], PATH_A_SHA256_2P20)
     return res["launches"]
@@ -915,13 +964,14 @@ def phase7(log_n: int, single: dict, card="cuda:0") -> dict:
     import torch
 
     import zinc_tpu_torch as zt
-    from zinc_tpu_torch.parallel import Mesh, local_mesh
+    from zinc_tpu_torch.parallel import Mesh
 
     card = torch.device(card)
     ccs, statement, wit, _, _ = setup(1 << log_n, 5)
     mesh = Mesh([card] * 4)
     label = f"mesh 4 x {card} 2^{log_n}"
-    a = prove_verify_large(label, (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS, mesh=mesh)
+    a = prove_verify_large(label, (ccs, statement, wit), with_merges(R1CS_KERNELS, log_n),
+                           GENERIC_KERNELS, mesh=mesh)
     check_sharded(label, mesh, log_n, "4 row blocks")
     if a["sha256"] != single["sha256"]:
         raise AssertionError(f"{label}: proof differs from the single-device proof")
@@ -942,20 +992,31 @@ def phase7(log_n: int, single: dict, card="cuda:0") -> dict:
         raise AssertionError("the 2 x 2 mesh's roots or proof differ from the 1-D mesh's")
     log(f"[mesh 2 x 2 x {card} 2^{log_n}] roots and proof identical to the 4-shard mesh's")
 
+    mesh_of_cards(log_n, single, (ccs, statement, wit))
+    return a["launches"]
+
+
+def mesh_of_cards(log_n: int, single: dict, fixture) -> None:
+    """Phase 7(d): where there are two cards or more, the 2^log_n R1CS
+    (``fixture``) on ``local_mesh()`` over every card, its proof
+    ``single``'s, verified, the tamper rejected."""
+    import torch
+
+    from zinc_tpu_torch.parallel import local_mesh
+
     n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        cards = local_mesh()
-        label = f"mesh of {n_cards} cards 2^{log_n}"
-        d = prove_verify_large(label, (ccs, statement, wit), R1CS_KERNELS, GENERIC_KERNELS,
-                               mesh=cards)
-        even = n_cards & (n_cards - 1) == 0  # splits the rows and the hypercube
-        check_sharded(label, cards, log_n, f"{n_cards} row blocks" if even else "one device")
-        if d["sha256"] != single["sha256"]:
-            raise AssertionError(f"{label}: proof differs from the single-device proof")
-    else:
+    if n_cards < 2:
         log(f"[mesh of cards] (d) not run: torch.cuda.device_count() is {n_cards}, and a mesh of "
             f"separate cards needs two or more")
-    return a["launches"]
+        return
+    cards = local_mesh()
+    label = f"mesh of {n_cards} cards 2^{log_n}"
+    d = prove_verify_large(label, fixture, with_merges(R1CS_KERNELS, log_n), GENERIC_KERNELS,
+                           mesh=cards)
+    even = n_cards & (n_cards - 1) == 0  # splits the rows and the hypercube
+    check_sharded(label, cards, log_n, f"{n_cards} row blocks" if even else "one device")
+    if d["sha256"] != single["sha256"]:
+        raise AssertionError(f"{label}: proof differs from the single-device proof")
 
 
 # ---------------------------------------------------------------------------
@@ -1234,7 +1295,7 @@ def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commi
         if not res["staged"] and res["staged_copies"]:
             raise AssertionError(f"{who}: {res['staged_copies']} gathers went through the host")
         if res["on_card"]:
-            check_launches(res["launches"], R1CS_KERNELS, GENERIC_KERNELS, who)
+            check_launches(res["launches"], with_merges(R1CS_KERNELS, log_n), GENERIC_KERNELS, who)
             if res["launches"]["fs_round"] != sum(r["device_rounds"] for r in recs):
                 raise AssertionError(f"{who}: fs_round launched {res['launches']['fs_round']} "
                                      f"times for {[r['device_rounds'] for r in recs]} rounds")
@@ -1254,23 +1315,27 @@ def phase9(single: dict, log_n: int = 20, devices: str = "cuda:0,cuda:0") -> lis
     NCCL, the round's sums gathered card to card: one fetch a sumcheck,
     and the enqueue loops clean under sync debug "error".  Returns each
     rank's launches."""
-    import torch
-
     results = run_ranks("2 processes", log_n, devices, "gloo")
     check_ranks("2 processes", results, single, log_n, "2 row blocks x 2 column blocks")
-    launches = [r["launches"] for r in results]
+    return [r["launches"] for r in results] + nccl_ranks(single, log_n)
+
+
+def nccl_ranks(single: dict, log_n: int) -> list[dict]:
+    """Phase 9(b): where there are two cards or more, two ranks over NCCL,
+    one a card (check_ranks); returns each rank's launches."""
+    import torch
+
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n_cards >= 2:
-        results = run_ranks("2 processes, NCCL", log_n, "own", "nccl")
-        check_ranks("2 processes, NCCL", results, single, log_n, "2 row blocks x 1 column blocks")
-        log("[2 processes, NCCL] no byte of a round's sums reached the host before a sumcheck's "
-            "one fetch, and each rank's first collective (NCCL's communicator started by "
-            "init_process_group) ran inside a device-FS enqueue loop under sync debug \"error\"")
-        launches += [r["launches"] for r in results]
-    else:
+    if n_cards < 2:
         log(f"[2 processes, NCCL] not run: torch.cuda.device_count() is {n_cards}, and one rank "
             f"per card needs two cards or more")
-    return launches
+        return []
+    results = run_ranks("2 processes, NCCL", log_n, "own", "nccl")
+    check_ranks("2 processes, NCCL", results, single, log_n, "2 row blocks x 1 column blocks")
+    log("[2 processes, NCCL] no byte of a round's sums reached the host before a sumcheck's "
+        "one fetch, and each rank's first collective (NCCL's communicator started by "
+        "init_process_group) ran inside a device-FS enqueue loop under sync debug \"error\"")
+    return [r["launches"] for r in results]
 
 
 # ---------------------------------------------------------------------------
@@ -1399,7 +1464,27 @@ def main() -> int:
     return 0
 
 
+def cards_main() -> int:
+    """``--cards``: only what needs two cards or more, phase 7(d) and
+    phase 9(b), each held to the pinned 2^20 proof (R1CS_SHA256_2P20, which
+    phase 3 checks on one card)."""
+    import torch
+
+    from zinc_tpu_torch.ops import _cuda
+
+    if torch.cuda.device_count() < 2:
+        raise SystemExit("chip_smoke.py --cards needs two cards or more")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True).stdout.strip())
+    _cuda.build(BUILD_WIDTHS + (_cuda.BLAKE3,))
+    single = {"sha256": R1CS_SHA256_2P20}
+    mesh_of_cards(20, single, setup(1 << 20, 5)[:3])
+    nccl_ranks(single, 20)
+    log("[cards] phase 7(d) and 9(b) passed")
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--rank":
         sys.exit(rank_main(sys.argv[1:]))
-    sys.exit(main())
+    sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else main())

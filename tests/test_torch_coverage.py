@@ -35,7 +35,7 @@ RENAMED = {
                             "csrc/generic.cu"),
     "sumcheck/mxu_exec.py": ("sumcheck/kernels.py", "sumcheck/executor.py", "csrc/sumcheck.cu"),
     "sumcheck/pallas_exec.py": ("sumcheck/kernels.py", "sumcheck/executor.py", "csrc/generic.cu"),
-    "ops/blake3_kernel.py": ("ops/blake3.py",),
+    "ops/blake3_kernel.py": ("ops/blake3.py", "csrc/blake3.cu"),
     "utils/timing.py": ("timing.py",),
 }
 # a JAX module the port does not need, and why (ROADMAP, "Not to port")

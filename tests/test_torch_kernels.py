@@ -1,11 +1,13 @@
-"""The wrappers of the port's CUDA kernels (K1-K4, the generic tier and
-fs_round), and the port's native host runtime.
+"""The wrappers of the port's CUDA kernels (K1-K4, the generic tier,
+fs_round, the BLAKE3 Merkle tree and the eq level), and the port's native
+host runtime.
 
 On the CPU a wrapper takes the plain version, and only because its tensor
 lies on the CPU; bad dtypes, shapes and combinations raise.  The cases
 marked ``cuda`` hold each kernel against its plain version on the card
 (fs_round in every challenge regime, fold and fold_round_eval with r on
-the card against their host-word forms), run the device-resident
+the card against their host-word forms, the Merkle layers and eq levels at
+the shapes that split them into launches), run the device-resident
 Fiat-Shamir driver's enqueue loop under
 ``torch.cuda.set_sync_debug_mode("error")``, and skip without a card:
 
@@ -42,7 +44,7 @@ def ctx():
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    _cuda.build(_cuda.KERNEL_WORDS)  # every width at once (no-op once built)
+    _cuda.build(_cuda.KERNEL_WORDS + (_cuda.BLAKE3,))  # every library at once (no-op once built)
     return "cuda"
 
 
@@ -280,7 +282,8 @@ def test_cuda_tensors_launch_the_kernels(cuda_device, ctx):
     sk.round_eval(ctx, tabs, [(0, 1)], 3)
     sk.round_eval_gruen(ctx, tabs, a[:32].contiguous(), [(0,), (1,)], 3)
     assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 1,
-                              "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0}
+                              "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0,
+                              "blake3_leaves": 0, "blake3_merge": 0, "eq_level": 0}
 
 
 @pytest.mark.cuda
@@ -564,3 +567,116 @@ def test_fs_enqueue_loop_syncs_nothing_on_cuda(cuda_device, tier):
     got = prove(tabs.to(cuda_device), True)
     assert _cuda.LAUNCHES["fs_round"] == nv - 6  # rounds of more than 64 entries
     assert got == prove(tabs, False)
+
+
+# ---------------------------------------------------------------------------
+# the BLAKE3 Merkle tree and the eq level on the card (the CPU cases, against
+# the JAX package: test_torch_merkle.py, test_torch_eq.py)
+# ---------------------------------------------------------------------------
+
+
+def _codewords(shape, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+    lanes = words.view(np.int32) if dtype == torch.int32 else words.astype(np.int64)
+    return torch.from_numpy(lanes).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k_words,dtype", [
+    (1, 1, 1, torch.int32),  # a row of one leaf: no merge
+    (3, 64, 4, torch.int32),  # fewer leaves than a block
+    (3, 128, 2, torch.int64),  # a half-filled second block
+    (2, 4096, 4, torch.int32),  # a leaves launch and a merge launch
+    (4, 2048, 8, torch.int64),  # 64-byte leaves
+    (1, 1 << 18, 1, torch.int32),  # two merge launches
+])
+def test_merkle_kernels_match_plain_on_cuda(cuda_device, rows, n, k_words, dtype):
+    from zinc_tpu_torch.ops import blake3 as b3
+
+    enc = _codewords((rows, n, 2 * k_words), dtype, rows + n + k_words, cuda_device)
+    depth = n.bit_length() - 1
+    _cuda.reset_launches()
+    layers = b3.merkle_tree_device(enc, k_words)
+    merges = -(-(depth - min(depth, b3.LEAF_LEVELS)) // b3.MERGE_LEVELS)
+    assert (_cuda.LAUNCHES["blake3_leaves"], _cuda.LAUNCHES["blake3_merge"]) == (1, merges)
+    want = b3.hash_leaves_plain(enc, k_words, 0)
+    want += b3.merge_levels_plain(want[0], depth)
+    assert len(layers) == depth + 1
+    assert all(torch.equal(g, w) for g, w in zip(layers, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,count", [(5, 2, 1), (3, 1024, 9), (2, 64, 4)])
+def test_merge_levels_match_plain_on_cuda(cuda_device, rows, n, count):
+    from zinc_tpu_torch.ops import blake3 as b3
+
+    level = _codewords((rows, n, 8), torch.int64, 60 + count, cuda_device)
+    _cuda.reset_launches()
+    got = b3.merge_levels(level, count)
+    one = b3.merge_level(level[:, :, :].transpose(0, 1).contiguous().transpose(0, 1))
+    assert _cuda.LAUNCHES["blake3_merge"] == 2
+    want = b3.merge_levels_plain(level, count)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(one, want[0])  # a non-contiguous level
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n64", FIELDS)
+def test_eq_levels_match_plain_on_cuda(cuda_device, q, n64):
+    from zinc_tpu_torch.poly.device import eq_levels, eq_levels_plain
+
+    c = fm.device_field(FieldConfig(q, n64))
+    for s in (1, 9, 14):
+        r = _residues(c, (s,), 70 + s, cuda_device)
+        _cuda.reset_launches()
+        got = eq_levels(c, r)
+        assert _cuda.LAUNCHES["eq_level"] == s and _cuda.LAUNCHES["mont_mul"] == 0
+        want = eq_levels_plain(c, r)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_merkle_and_eq_wrappers_refuse_on_cuda(cuda_device, ctx):
+    from zinc_tpu_torch.ops import blake3 as b3
+
+    buf = _residues(ctx, (64,), 80, cuda_device)
+    r = _residues(ctx, (2,), 81, cuda_device)
+    with pytest.raises(ValueError):
+        fk.eq_level(ctx, buf, r[0].cpu())  # operands on two devices
+    with pytest.raises(ValueError):
+        fk.eq_level(ctx, buf, r.reshape(-1)[2:10])  # r_j off its 16-byte alignment
+    with pytest.raises(ValueError):
+        fk.eq_level(ctx, buf[::2], r[0])  # not contiguous
+    big = fm.device_field(FieldConfig((1 << 575) + 1515, 9))  # 18 words: no kernel width
+    with pytest.raises(ValueError):
+        fk.eq_level(big, _residues(big, (4,), 82, cuda_device), _residues(big, (1,), 83,
+                                                                         cuda_device)[0])
+    enc = _codewords((2, 8, 4), torch.int32, 84, cuda_device)
+    with pytest.raises(TypeError):
+        b3.merkle_tree_device(enc.to(torch.float32), 2)
+    with pytest.raises(ValueError):
+        b3.merkle_tree_device(enc[:, :6], 2)
+    with pytest.raises(TypeError):
+        b3.merge_level(enc.reshape(2, 4, 8))  # int32 digests
+
+
+@pytest.mark.cuda
+def test_merkle_and_eq_launch_on_their_tensors_card_on_cuda(cuda_device, ctx):
+    """The Merkle and eq-level wrappers on tensors of cuda:1 while cuda:0 is
+    current launch on cuda:1 and equal their plain versions."""
+    from zinc_tpu_torch.ops import blake3 as b3
+    from zinc_tpu_torch.poly.device import eq_levels
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    other = torch.device("cuda", 1)
+    enc = _codewords((2, 1024, 8), torch.int32, 90, "cpu")  # k_words = 4
+    r = _residues(ctx, (6,), 91)
+    with torch.cuda.device(0):
+        layers = b3.merkle_tree_device(enc.to(other), 4)
+        levels = eq_levels(ctx, r.to(other))
+        torch.cuda.synchronize(other)
+    assert all(x.device == other for x in layers + levels)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(layers, b3.merkle_tree_device(enc, 4)))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(levels, eq_levels(ctx, r)))

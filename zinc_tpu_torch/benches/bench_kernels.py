@@ -15,6 +15,11 @@ slots each, 4N² + 2N; a product summed unreduced (a term's last factor:
 the round sums are only needed mod q) takes the N² of the product alone,
 2N².  Every round kernel is held to the same count of products, the least
 its round needs (:func:`round_products`), whatever its own scheme forms.
+The BLAKE3 kernels form no product: their bound counts a compression's
+integer instructions at their fewest, per pipe.  Its xors and rotations
+(``COMPRESS_ALU``) have only the ALU pipe, 64 lanes a clock an SM; its adds
+may also issue as IMAD on the FMA pipe, so all its instructions
+(``COMPRESS_OPS``) share the SM's issue rate, 128 lanes a clock.
 
 ``--root`` times the kernels of another checkout of the port with the same
 cases (its ``zinc_tpu_torch`` is imported instead of this one's), so that
@@ -35,6 +40,13 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SMS = 132
 IMAD_SLOTS_PER_CLOCK = 64  # per SM, compute capability 9.0
+ALU_LANES_PER_CLOCK = 64  # per SM: logic ops, shifts and permutes
+SM_LANES_PER_CLOCK = 128  # per SM: 4 warp instructions a clock, on the ALU and FMA pipes
+# one BLAKE3 compression (csrc/blake3.cu): 56 G steps of 4 xors and 4
+# rotations (ALU only) and 2 three-input adds and 2 adds, and the 8 xors of
+# the output
+COMPRESS_ALU = 56 * 8 + 8
+COMPRESS_OPS = 56 * 12 + 8
 
 
 def smi_row(device, query: str, units: bool = True) -> str:
@@ -59,12 +71,19 @@ def card(device="cuda") -> dict:
     return {"name": name, "power_limit_w": float(power), "max_sm_mhz": float(clock)}
 
 
-def bound_ms(n32: int, n_bytes: int, full: int, lazy: int, max_sm_mhz: float) -> tuple[float, str]:
+def bound_ms(n32: int, n_bytes: int, full: int, lazy: int, max_sm_mhz: float,
+             int_ops: tuple[int, int] = (0, 0)) -> tuple[float, str]:
     """(bound in ms, "bytes" or "operations") of a call that moves n_bytes and
-    forms ``full`` Montgomery products and ``lazy`` unreduced ones."""
+    forms ``full`` Montgomery products and ``lazy`` unreduced ones, or does
+    ``int_ops`` = (ALU-only, all) other 32-bit integer instructions: the
+    slowest of the bytes, the products' IMAD slots, the ALU pipe and the
+    issue rate."""
+    clock = SMS * max_sm_mhz * 1e6 / 1e3  # SM clocks a ms
     mem = n_bytes / HBM_BYTES_PER_S * 1e3
-    slots = full * (4 * n32 * n32 + 2 * n32) + lazy * 2 * n32 * n32
-    ops = slots / (SMS * IMAD_SLOTS_PER_CLOCK * max_sm_mhz * 1e6) * 1e3
+    alu, every = int_ops
+    ops = max((full * (4 * n32 * n32 + 2 * n32) + lazy * 2 * n32 * n32)
+              / (IMAD_SLOTS_PER_CLOCK * clock),
+              alu / (ALU_LANES_PER_CLOCK * clock), every / (SM_LANES_PER_CLOCK * clock))
     return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
@@ -144,8 +163,10 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
     calls), Montgomery and unreduced products (``full``, ``lazy``,
     :func:`round_products`) and bytes moved.  The first case of each kernel
     is the one its kernels-line row reports.  ``launch_bound`` marks the
-    case so small that the launch floor (:func:`launch_floor_ms`), not its
-    bytes, bounds it: path B's last fold, K6's shape."""
+    case so small that the launch floor (:func:`launch_floor_ms`) times its
+    ``launches``, not its bytes, bounds it: path B's last fold, K6's shape,
+    and the eq table's 2^log_n levels (one launch a level, the last ones
+    of a few entries).  The eq table's case (:func:`eq_case`) is the last."""
     import numpy as np
 
     from zinc_tpu_torch.fields import montgomery as fm
@@ -170,10 +191,7 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
     t7, t_a = [tuple(range(7))], [(0, 1, 2, 3, 5), (4, 5)]
     sz = f"2^{log_n}"
 
-    def case(name, shape, kernel, plain, products, n_bytes, launch_bound=False):
-        full, lazy = products if isinstance(products, tuple) else (products, 0)
-        return {"name": name, "shape": shape, "kernel": kernel, "plain": plain,
-                "full": full, "lazy": lazy, "bytes": n_bytes, "launch_bound": launch_bound}
+    case = _case
 
     def folded_round(n_fold, terms, n_pts):
         # K10: one Montgomery product per folded entry, then the round
@@ -218,6 +236,92 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
              lambda: sk.fold_round_eval(ctx, sc6, r_dev, t_a, 6),
              lambda: sk.fold_round_eval_plain(ctx, sc6, r, t_a, 6),
              folded_round(6 * h, t_a, 6), 6 * (n + h) * eb),
+        eq_case(ctx, device, log_n),
+    ]
+
+
+def _case(name, shape, kernel, plain, products, n_bytes, launch_bound=False, launches=1,
+          int_ops=(0, 0)):
+    full, lazy = products if isinstance(products, tuple) else (products, 0)
+    return {"name": name, "shape": shape, "kernel": kernel, "plain": plain, "full": full,
+            "lazy": lazy, "bytes": n_bytes, "launch_bound": launch_bound, "launches": launches,
+            "int_ops": int_ops}
+
+
+def eq_case(ctx, device, log_n: int = 20, seed: int = 25) -> dict:
+    """The eq table of a random point of log_n variables, all its levels, as
+    the executor's Gruen levels and the eq tables of Spartan and the open
+    build it: log_n eq-level launches, 2^log_n − 1 Montgomery products, and
+    each level's input read and output written once (3·(2^log_n − 1)
+    residues)."""
+    import numpy as np
+
+    from zinc_tpu_torch.poly.device import eq_levels, eq_levels_plain
+
+    r = random_residues(np.random.default_rng(seed), ctx, (log_n,), device)
+    n = 1 << log_n
+    return _case("eq_level", f"2^{log_n} eq table, {log_n} levels",
+                 lambda: eq_levels(ctx, r), lambda: eq_levels_plain(ctx, r),
+                 n - 1, 3 * (n - 1) * 4 * ctx.n32, launch_bound=True, launches=log_n)
+
+
+def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4,
+                 seed: int = 26) -> list[dict]:
+    """The BLAKE3 kernels at the main path's commit (the 2^20 R1CS: 1024 rows
+    of 2048 codewords of 8 canonical u32 words in int64 lanes, as
+    ``zip/device.py:encode_rows`` gives them): the leaves launch (the leaves
+    and 8 levels), the merge launch of the 3 levels left, and a merge launch
+    of 9 levels over the leaves; then the whole tree (both launches).
+    Bytes: the codeword words read once, every digest written once (8 int64
+    lanes a node) and a merge's input level read once.  Instructions: each
+    compression's (``COMPRESS_ALU``, ``COMPRESS_OPS``) and a leaf's byte
+    swaps, one permute a word, counted in both."""
+    import numpy as np
+    import torch
+
+    from zinc_tpu_torch.ops import blake3 as b3
+
+    rng = np.random.default_rng(seed)
+    enc = torch.from_numpy(rng.integers(0, 1 << 32, size=(rows, n, 2 * k_words),
+                                        dtype=np.int64)).to(device)
+    leaves = rows * n
+    depth = n.bit_length() - 1
+    lv = min(b3.LEAF_LEVELS, depth)
+    top = b3.hash_leaves_plain(enc, k_words, lv)[-1]  # the level the merge launch starts from
+    full_tree = b3.hash_leaves_plain(enc, k_words, 0)[0]
+
+    def nodes(first, count):  # nodes of levels first+1 .. first+count of the rows
+        return sum(rows * (n >> lvl) for lvl in range(first + 1, first + count + 1))
+
+    digest, word_ops = 64, 2 * k_words  # bytes of a node; a leaf's byte swaps
+
+    def instructions(compressions, leaves=0):  # (ALU-only, all)
+        return (compressions * COMPRESS_ALU + leaves * word_ops,
+                compressions * COMPRESS_OPS + leaves * word_ops)
+
+    m_leaf = nodes(0, lv)
+    m_top = nodes(lv, depth - lv)
+    m_wide = nodes(0, b3.MERGE_LEVELS)
+    return [
+        _case("blake3_leaves", f"{rows} x {n} x {2 * k_words} words (int64), leaves + {lv} levels",
+              lambda: b3.hash_leaves(enc, k_words, lv),
+              lambda: b3.hash_leaves_plain(enc, k_words, lv), 0,
+              enc.numel() * 8 + (leaves + m_leaf) * digest,
+              int_ops=instructions(leaves + m_leaf, leaves)),
+        _case("blake3_merge", f"{rows} x {n >> lv} digests, {depth - lv} levels",
+              lambda: b3.merge_levels(top, depth - lv),
+              lambda: b3.merge_levels_plain(top, depth - lv), 0,
+              (top.shape[0] * top.shape[1] + m_top) * digest, launch_bound=True,
+              int_ops=instructions(m_top)),
+        _case("blake3_merge", f"{rows} x {n} digests, {b3.MERGE_LEVELS} levels",
+              lambda: b3.merge_levels(full_tree, b3.MERGE_LEVELS),
+              lambda: b3.merge_levels_plain(full_tree, b3.MERGE_LEVELS), 0,
+              (leaves + m_wide) * digest, int_ops=instructions(m_wide)),
+        _case("merkle_tree_device", f"{rows} x {n} x {2 * k_words} words (int64), whole tree",
+              lambda: b3.merkle_tree_device(enc, k_words),
+              lambda: b3.hash_leaves_plain(enc, k_words, depth), 0,
+              enc.numel() * 8 + (leaves + nodes(0, depth)) * digest,
+              int_ops=instructions(leaves + nodes(0, depth), leaves)),
     ]
 
 
@@ -328,13 +432,14 @@ def main(argv=None) -> None:
                       "package": str(Path(zt.__file__).parent), "launch_floor_ms": floor}),
           flush=True)
     ctx = device_field(zt.FieldConfig((1 << 255) + 95, 4))
-    for c in cases(ctx, "cuda"):
+    for c in cases(ctx, "cuda") + merkle_cases("cuda"):
         ms = device_ms(c["kernel"])
-        bound, by = bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"])
+        bound, by = bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"],
+                             c["int_ops"])
         row = {"name": c["name"], "shape": c["shape"], "ms": ms, "bound_ms": bound,
                "bound_by": by, "share_of_bound": bound / ms}
         if c["launch_bound"]:
-            row["bound_with_launch_floor_ms"] = max(bound, floor)
+            row["bound_with_launch_floor_ms"] = max(bound, c["launches"] * floor)
         print(json.dumps(row), flush=True)
     for path, rows in k10_rounds(ctx, "cuda").items():
         times = [device_ms(row["kernel"]) for row in rows]

@@ -3,8 +3,8 @@
 The Merkle commitment layer hashes codeword elements and merges digests with
 BLAKE3 (leaf = blake3(bytes), merge = blake3(left ‖ right); see
 zinc/src/zip/pcs/utils.rs:87-118).  Every node is a plain hash of
-at most a few blocks, so the batched device kernel (ops/blake3_kernel.py)
-only needs the single-chunk path; this host implementation is the general
+at most a few blocks, so the batched device kernels (ops/blake3.py,
+csrc/blake3.cu) only need the single-chunk path; this host implementation is the general
 oracle it is tested against.
 """
 

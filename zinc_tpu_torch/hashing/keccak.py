@@ -13,7 +13,7 @@ derive challenges without consuming the running state).
 Host-side hashing is inherently sequential (Fiat-Shamir chaining), so this
 lives on the host; the bulk data-parallel hashing of the framework (Merkle
 leaves/levels) uses BLAKE3 on device instead (see hashing/blake3.py and
-ops/blake3_kernel.py).
+ops/blake3.py).
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources in ``zinc_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` once per field width: ``-DZT_WORDS=n32`` binds the kernels to one
-word count, and each width is its own shared library with a plain C
-interface, named by the width and a hash of the sources, in
-``zinc_tpu_torch/_build/``, loaded with ``ctypes``.  A width is built at the
-first kernel call on a CUDA tensor of that width (never at import), or ahead
-by :func:`build`; every nvcc process of every width asked for starts at
-once.  ``BUILD[n32]`` keeps each width's build time and each kernel's
+``sm_90a`` into shared libraries with a plain C interface, loaded with
+``ctypes``: the field kernels (``FIELD_SOURCES``) once per field width,
+``-DZT_WORDS=n32`` binding them to one word count, and the BLAKE3 kernels
+(``csrc/blake3.cu``), which take no field, once, as the ``BLAKE3`` target.
+Each library is named by its target and a hash of the sources and flags,
+in ``zinc_tpu_torch/_build/``.  A library is built at the first kernel call
+on a CUDA tensor that needs it (never at import), or ahead by
+:func:`build`; every nvcc process of every target asked for starts at
+once.  ``BUILD[target]`` keeps each library's build time and each kernel's
 register and spill report (``-Xptxas -v``).  Every C entry point returns
 ``cudaGetLastError()``; :func:`check` raises when it is not 0.
 
@@ -36,15 +38,19 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu", "fs.cu")
+FIELD_SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu", "fs.cu")
+SOURCES = FIELD_SOURCES + ("blake3.cu",)
 HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh", "round_sums.cuh", "keccak.cuh")
 # the word counts the kernels take: n32 = 2·n64 for n64 = 1..8 (64 to 512 bits)
 KERNEL_WORDS = tuple(range(2, 17, 2))
 
 LAUNCHES = {"mont_mul": 0, "fold": 0, "round_eval": 0, "round_eval_gruen": 0,
-            "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0}
-# n32 -> {"seconds", "path", "cached", "ptxas"}
-BUILD: dict[int, dict] = {}
+            "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0,
+            "blake3_leaves": 0, "blake3_merge": 0, "eq_level": 0}
+# the target of csrc/blake3.cu, beside the field widths' targets (their n32)
+BLAKE3 = "blake3"
+# target -> {"seconds", "path", "cached", "ptxas"}
+BUILD: dict = {}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -70,91 +76,124 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def _lib_path(n32: int) -> Path:
-    h = hashlib.sha256()
-    for name in HEADERS + SOURCES:
+def _sources(target) -> tuple[str, ...]:
+    return ("blake3.cu",) if target == BLAKE3 else FIELD_SOURCES
+
+
+def _defines(target) -> list[str]:
+    """A field width's word count, or the BLAKE3 kernels' block, which
+    ``ops/blake3.py`` plans its launches with (``LOG_BLOCK``)."""
+    if target == BLAKE3:
+        from .blake3 import LOG_BLOCK
+
+        return [f"-DZT_B3_LOG_BLOCK={LOG_BLOCK}"]
+    return [f"-DZT_WORDS={target}"]
+
+
+def _lib_path(target) -> Path:
+    h = hashlib.sha256(" ".join(_defines(target)).encode())
+    for name in HEADERS + _sources(target):
         h.update((SRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libzinc_tpu_torch_w{n32}_{h.hexdigest()[:16]}.so"
+    name = target if target == BLAKE3 else f"w{target}"
+    return BUILD_DIR / f"libzinc_tpu_torch_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(widths) -> None:
-    """Build the libraries of these word counts that are not on disk yet: one
-    nvcc process per source and width, all started together, then one link
-    per width."""
-    for n32 in widths:
-        require_kernel_words(n32)
-    todo = sorted({n for n in widths if not _lib_path(n).exists()})
-    for n in widths:
-        if n not in todo and n not in BUILD:
-            BUILD[n] = {"seconds": 0.0, "path": str(_lib_path(n)), "cached": True, "ptxas": ""}
+def build(targets) -> None:
+    """Build the libraries of these targets (word counts, or ``BLAKE3``) that
+    are not on disk yet: one nvcc process per source and target, all started
+    together, then one link per target."""
+    for t in targets:
+        if t != BLAKE3:
+            require_kernel_words(t)
+    todo = [t for t in dict.fromkeys(targets) if not _lib_path(t).exists()]
+    for t in targets:
+        if t not in todo and t not in BUILD:
+            BUILD[t] = {"seconds": 0.0, "path": str(_lib_path(t)), "cached": True, "ptxas": ""}
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     pid = os.getpid()
-    objs = {n: [_lib_path(n).with_suffix(f".{pid}.{Path(src).stem}.o") for src in SOURCES]
-            for n in todo}
+    objs = {t: [_lib_path(t).with_suffix(f".{pid}.{Path(src).stem}.o") for src in _sources(t)]
+            for t in todo}
     t0 = time.perf_counter()
     try:
         procs = {
-            n: [subprocess.Popen([_nvcc(), *flags, f"-DZT_WORDS={n}", "-Xptxas", "-v", "-c",
+            t: [subprocess.Popen([_nvcc(), *flags, *_defines(t), "-Xptxas", "-v", "-c",
                                   "-o", str(o), str(SRC_DIR / src)],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                for src, o in zip(SOURCES, objs[n])]
-            for n in todo
+                for src, o in zip(_sources(t), objs[t])]
+            for t in todo
         }
-        errs = {n: [p.communicate()[1] for p in ps] for n, ps in procs.items()}  # waits for all
-        failed = [f"{src} at {n} words ({p.returncode}):\n{err[-4000:]}"
-                  for n in todo for src, p, err in zip(SOURCES, procs[n], errs[n]) if p.returncode]
+        errs = {t: [p.communicate()[1] for p in ps] for t, ps in procs.items()}  # waits for all
+        failed = [f"{src} for {t} ({p.returncode}):\n{err[-4000:]}"
+                  for t in todo for src, p, err in zip(_sources(t), procs[t], errs[t])
+                  if p.returncode]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        tmps = {n: _lib_path(n).with_suffix(f".{pid}.tmp") for n in todo}
-        links = {n: subprocess.Popen([_nvcc(), *flags, "-shared", "-o", str(tmps[n]),
-                                      *map(str, objs[n])],
+        tmps = {t: _lib_path(t).with_suffix(f".{pid}.tmp") for t in todo}
+        links = {t: subprocess.Popen([_nvcc(), *flags, "-shared", "-o", str(tmps[t]),
+                                      *map(str, objs[t])],
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for n in todo}
-        for n, p in links.items():
+                 for t in todo}
+        for t, p in links.items():
             err = p.communicate()[1]
             if p.returncode:
-                raise RuntimeError(f"nvcc link failed at {n} words ({p.returncode}):\n{err[-4000:]}")
+                raise RuntimeError(f"nvcc link failed for {t} ({p.returncode}):\n{err[-4000:]}")
     finally:
         for os_ in objs.values():
             for o in os_:
                 o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    for n in todo:
-        os.replace(tmps[n], _lib_path(n))
-        BUILD[n] = {"seconds": seconds, "path": str(_lib_path(n)), "cached": False,
-                    "ptxas": "".join(errs[n])}
+    for t in todo:
+        os.replace(tmps[t], _lib_path(t))
+        BUILD[t] = {"seconds": seconds, "path": str(_lib_path(t)), "cached": False,
+                    "ptxas": "".join(errs[t])}
 
 
-def lib(n32: int):
-    """The loaded kernel library of this word count (built on first use)."""
-    l = _libs.get(n32)
+# each target's C entry points and their argument types (all return an int)
+_FIELD_API = {
+    "zt_mont_mul": [_P, _P, _P, _I64, _I, _P, _U32, _P],
+    "zt_fold": [_P, _P, _I64, _I, _P, _P, _P, _U32, _P],
+    "zt_eval_max_grid": [_I, _I, _I, _I, _P],
+    "zt_round_eval": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I, _P, _U32, _P],
+    "zt_gen_max_grid": [_I, _I, _I64, _I, _P],
+    "zt_round_eval_generic": [_P, _P, _P, _P, _I, _I64, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U32,
+                              _P],
+    "zt_fold_round_eval": [_P, _P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                           _U32, _P],
+    "zt_fs_round": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _U32, _P, _I, _P],
+    "zt_eq_level": [_P, _P, _P, _I64, _I, _P, _U32, _P],
+}
+_BLAKE3_API = {
+    "zt_blake3_leaves": [_P, _P, _I64, _I, _I, _I, _P],
+    "zt_blake3_merge": [_P, _P, _I64, _I, _P],
+}
+
+
+def _load(target):
+    l = _libs.get(target)
     if l is not None:
         return l
     with _lock:
-        if n32 not in _libs:
-            build([n32])
-            l = ctypes.CDLL(BUILD[n32]["path"])
-            l.zt_mont_mul.argtypes = [_P, _P, _P, _I64, _I, _P, _U32, _P]
-            l.zt_fold.argtypes = [_P, _P, _I64, _I, _P, _P, _P, _U32, _P]
-            l.zt_eval_max_grid.argtypes = [_I, _I, _I, _I, _P]
-            l.zt_round_eval.argtypes = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _P, _U32, _P]
-            l.zt_gen_max_grid.argtypes = [_I, _I, _I64, _I, _P]
-            l.zt_round_eval_generic.argtypes = [_P, _P, _P, _P, _I, _I64, _P, _P, _I, _I, _I, _I, _I,
-                                                _I, _P, _U32, _P]
-            l.zt_fold_round_eval.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _I, _I,
-                                             _I, _I, _I, _I, _P, _U32, _P]
-            l.zt_fs_round.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _U32,
-                                      _P, _I, _P]
-            for fn in (l.zt_mont_mul, l.zt_fold, l.zt_eval_max_grid, l.zt_round_eval,
-                       l.zt_gen_max_grid, l.zt_round_eval_generic, l.zt_fold_round_eval,
-                       l.zt_fs_round):
-                fn.restype = _I
-            _libs[n32] = l
-    return _libs[n32]
+        if target not in _libs:
+            build([target])
+            l = ctypes.CDLL(BUILD[target]["path"])
+            for name, args in (_BLAKE3_API if target == BLAKE3 else _FIELD_API).items():
+                fn = getattr(l, name)
+                fn.argtypes, fn.restype = args, _I
+            _libs[target] = l
+    return _libs[target]
+
+
+def lib(n32: int):
+    """The loaded field-kernel library of this word count (built on first use)."""
+    return _load(n32)
+
+
+def blake3_lib():
+    """The loaded BLAKE3 kernel library (built on first use)."""
+    return _load(BLAKE3)
 
 
 def target_device(device) -> torch.device:

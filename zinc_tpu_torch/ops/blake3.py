@@ -1,12 +1,24 @@
-"""Batched BLAKE3 Merkle trees in plain PyTorch.
+"""Batched BLAKE3 Merkle trees: the CUDA kernels and their plain versions.
 
 The port of ``zinc_tpu/ops/blake3_kernel.py`` (XLA code in the reference,
 not Pallas).  Every node is one BLAKE3 compression over a 64-byte block:
 a leaf hashes one codeword element's 8·k_words-byte serialization, a merge
-hashes two 32-byte child digests.  Lanes are int64 tensors holding u32
-values, masked to 32 bits after each add and rotate (torch's CPU uint32 has
-no add).  The tree is hashed level by level.  A hand-written kernel for
-this is later work.
+hashes two 32-byte child digests.  Digests are int64 tensors of u32 words,
+8 a node (the digest bytes are the words in little-endian order).
+
+On a CUDA tensor the tree is ``csrc/blake3.cu``, one thread a compression,
+built once as its own library (it takes no field): :func:`hash_leaves`
+hashes the leaves and merges up to ``LEAF_LEVELS`` levels in one launch,
+:func:`merge_levels` up to ``MERGE_LEVELS`` a launch, so a row of up to
+2^17 codewords takes two launches.  Both follow from the kernels' block of
+2^``LOG_BLOCK`` threads, which the build passes to the source.  The plain versions
+(:func:`compress_batch` over a level at a time, lanes masked to 32 bits
+after each add and rotate, since torch's CPU uint32 has no add) serve CPU
+tensors and the tests, and are what ``chip_smoke.py`` holds the kernels
+against on the card.
+
+Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,9 +26,13 @@ from __future__ import annotations
 import torch
 
 from ..hashing.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
+from . import _cuda
 
 M32 = 0xFFFFFFFF
 FLAGS = CHUNK_START | CHUNK_END | ROOT  # every node is one single-block chunk
+LOG_BLOCK = 8  # a kernel block is 2^LOG_BLOCK threads (csrc/blake3.cu's ZT_B3_LOG_BLOCK)
+LEAF_LEVELS = LOG_BLOCK  # merges a leaves launch makes in its blocks of 2^LOG_BLOCK leaves
+MERGE_LEVELS = LOG_BLOCK + 1  # merges a merge launch makes in its blocks of 2^(LOG_BLOCK+1) nodes
 
 
 def _round_perms() -> list[list[int]]:
@@ -85,9 +101,95 @@ def leaf_msg_words(words: torch.Tensor) -> torch.Tensor:
     The u64 word i serializes as BE(w[2i+1]) ‖ BE(w[2i]), so message word 2i
     is bswap(w[2i+1]) and 2i+1 is bswap(w[2i])."""
     b, n = words.shape
-    assert n <= 16, "leaves longer than one 64-byte block"
     sw = _bswap32(words).reshape(b, n // 2, 2).flip(-1).reshape(b, n)
     return torch.cat([sw, sw.new_zeros((b, 16 - n))], dim=1)
+
+
+def _depth(n: int, what: str) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"{what}: {n} nodes a row is not a power of two")
+    return n.bit_length() - 1
+
+
+def _split(buf: torch.Tensor, rows: int, sizes: list[int]) -> list[torch.Tensor]:
+    """Views of the levels laid one after the other in ``buf``."""
+    out, off = [], 0
+    for n in sizes:
+        out.append(buf[off : off + rows * n * 8].view(rows, n, 8))
+        off += rows * n * 8
+    return out
+
+
+def hash_leaves_plain(enc: torch.Tensor, k_words: int, levels: int) -> list[torch.Tensor]:
+    """The plain PyTorch version of :func:`hash_leaves` (any device)."""
+    r, n, w = enc.shape
+    msg = leaf_msg_words(enc.reshape(r * n, w).to(torch.int64) & M32)
+    leaves = compress_batch(msg, 8 * k_words, FLAGS).reshape(r, n, 8)
+    return [leaves] + merge_levels_plain(leaves, levels)
+
+
+def hash_leaves(enc: torch.Tensor, k_words: int, levels: int) -> list[torch.Tensor]:
+    """The leaves of every row and the ``levels`` levels above them.
+
+    enc: (R, N, 2·k_words) canonical u32 words (int32 or int64 lanes) of the
+    codeword elements, N a power of two, 1 ≤ k_words ≤ 8 (a leaf fits one
+    block), levels ≤ min(LEAF_LEVELS, log2 N).  Returns [leaves (R, N, 8),
+    (R, N/2, 8), ..., (R, N >> levels, 8)] int64 digest words."""
+    if enc.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"hash_leaves: expected int32 or int64 words, got {enc.dtype}")
+    if enc.dim() != 3 or not 1 <= k_words <= 8 or enc.shape[2] != 2 * k_words:
+        raise ValueError(f"hash_leaves: expected (R, N, {2 * k_words}) words of 1-8 u64 words, "
+                         f"got {tuple(enc.shape)}")
+    r, n, w = enc.shape
+    if not 0 <= levels <= min(LEAF_LEVELS, _depth(n, "hash_leaves")):
+        raise ValueError(f"hash_leaves: {levels} levels above {n} leaves a row")
+    if not enc.is_cuda:
+        return hash_leaves_plain(enc, k_words, levels)
+    enc = enc.contiguous()
+    sizes = [n >> lvl for lvl in range(levels + 1)]
+    buf = torch.empty(r * sum(sizes) * 8, dtype=torch.int64, device=enc.device)
+    with _cuda.on_device(enc):
+        rc = _cuda.blake3_lib().zt_blake3_leaves(
+            buf.data_ptr(), enc.data_ptr(), r * n, w, enc.element_size() // 4, levels,
+            _cuda.stream_ptr(enc.device),
+        )
+    _cuda.check(rc, "blake3_leaves")
+    _cuda.LAUNCHES["blake3_leaves"] += 1
+    return _split(buf, r, sizes)
+
+
+def merge_levels_plain(level: torch.Tensor, count: int) -> list[torch.Tensor]:
+    """The plain PyTorch version of :func:`merge_levels` (any device)."""
+    out = []
+    for _ in range(count):
+        level = compress_batch(level.reshape(-1, 16), 64, FLAGS).reshape(level.shape[0], -1, 8)
+        out.append(level)
+    return out
+
+
+def merge_levels(level: torch.Tensor, count: int) -> list[torch.Tensor]:
+    """The ``count`` Merkle levels above ``level`` (R, N, 8) int64 digest
+    words, N a power of two, 1 ≤ count ≤ min(MERGE_LEVELS, log2 N):
+    [(R, N/2, 8), ..., (R, N >> count, 8)], node i the hash of children
+    2i ‖ 2i+1."""
+    if level.dtype != torch.int64:
+        raise TypeError(f"merge_levels: expected int64 digest words, got {level.dtype}")
+    if level.dim() != 3 or level.shape[2] != 8:
+        raise ValueError(f"merge_levels: expected (R, N, 8) digests, got {tuple(level.shape)}")
+    r, n, _ = level.shape
+    if not 1 <= count <= min(MERGE_LEVELS, _depth(n, "merge_levels")):
+        raise ValueError(f"merge_levels: {count} levels above {n} nodes a row")
+    if not level.is_cuda:
+        return merge_levels_plain(level, count)
+    level = level.contiguous()
+    sizes = [n >> lvl for lvl in range(1, count + 1)]
+    buf = torch.empty(r * sum(sizes) * 8, dtype=torch.int64, device=level.device)
+    with _cuda.on_device(level):
+        rc = _cuda.blake3_lib().zt_blake3_merge(buf.data_ptr(), level.data_ptr(), r * n, count,
+                                             _cuda.stream_ptr(level.device))
+    _cuda.check(rc, "blake3_merge")
+    _cuda.LAUNCHES["blake3_merge"] += 1
+    return _split(buf, r, sizes)
 
 
 def merkle_tree_device(enc: torch.Tensor, k_words: int) -> list[torch.Tensor]:
@@ -95,20 +197,15 @@ def merkle_tree_device(enc: torch.Tensor, k_words: int) -> list[torch.Tensor]:
 
     enc: (R, N, 2·k_words) canonical u32 words (int32 or int64) of the
     codeword elements, N a power of two.  Returns [leaves (R, N, 8),
-    (R, N/2, 8), ..., root (R, 1, 8)] int64 digest words (the digest bytes
-    are the words in little-endian order)."""
-    r, n, w = enc.shape
-    assert w == 2 * k_words
-    msg = leaf_msg_words(enc.reshape(r * n, w).to(torch.int64) & M32)
-    level = compress_batch(msg, 8 * k_words, FLAGS).reshape(r, n, 8)
-    layers = [level]
-    while level.shape[1] > 1:
-        level = merge_level(level)
-        layers.append(level)
+    (R, N/2, 8), ..., root (R, 1, 8)] int64 digest words."""
+    depth = _depth(enc.shape[1], "merkle_tree_device")
+    layers = hash_leaves(enc, k_words, min(LEAF_LEVELS, depth))
+    while len(layers) <= depth:
+        layers += merge_levels(layers[-1], min(MERGE_LEVELS, depth + 1 - len(layers)))
     return layers
 
 
 def merge_level(level: torch.Tensor) -> torch.Tensor:
     """One Merkle level up: (R, N, 8) digests → (R, N/2, 8), node i the hash
     of children 2i ‖ 2i+1."""
-    return compress_batch(level.reshape(-1, 16), 64, FLAGS).reshape(level.shape[0], -1, 8)
+    return merge_levels(level, 1)[0]

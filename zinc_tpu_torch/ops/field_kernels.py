@@ -1,4 +1,5 @@
-"""K1: the batched Montgomery product, as a CUDA kernel and its plain version.
+"""K1, the batched Montgomery product, and one level of the eq recurrence,
+as CUDA kernels and their plain versions.
 
 Replaces ``zinc_tpu/ops/pallas_field.py:mont_mul_pallas_t`` (the Pallas
 kernel ``ops/sparse.py:_mont_mul_best`` calls on the TPU).  The kernel is
@@ -7,7 +8,12 @@ kernel ``ops/sparse.py:_mont_mul_best`` calls on the TPU).  The kernel is
 H100's ridge; the kernel keeps the chain in registers and its loads
 coalesced (see the note in the source).
 
-Wrapper rule: a CPU tensor goes to :func:`mont_mul_plain`; a CUDA tensor
+:func:`eq_level` is one step of ``poly/device.py:eq_levels`` (the jitted
+eq programs ``zinc_tpu/poly/device.py:69-77`` and
+``zinc_tpu/sumcheck/mxu_exec.py:835`` in the reference, XLA, not Pallas):
+K1's product and a subtraction an entry, in ``csrc/mont_mul.cu`` too.
+
+Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises.
 """
 
@@ -49,3 +55,35 @@ def mont_mul(ctx: fm.DeviceField, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
     _cuda.check(rc, "mont_mul")
     _cuda.LAUNCHES["mont_mul"] += 1
     return out.reshape(shape)
+
+
+def eq_level_plain(ctx: fm.DeviceField, buf: torch.Tensor, r_j: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`eq_level` (any device)."""
+    t = fm.mont_mul(ctx, buf, r_j)
+    lo = fm.mont_sub(ctx, buf, t)
+    return torch.stack([lo, t], dim=1).reshape(-1, ctx.n32)
+
+
+def eq_level(ctx: fm.DeviceField, buf: torch.Tensor, r_j: torch.Tensor) -> torch.Tensor:
+    """One level of the eq recurrence: from the (B, n32) table ``buf`` and
+    r_j (n32,), the (2B, n32) table with out[2i] = buf[i]·(1 − r_j) and
+    out[2i+1] = buf[i]·r_j (r_j on the lowest index bit), canonical
+    Montgomery residues."""
+    n = ctx.n32
+    _cuda.require_field_tensor("eq_level buf", buf, n, 2)
+    _cuda.require_field_tensor("eq_level r_j", r_j, n, 1)
+    if buf.device != r_j.device:
+        raise ValueError(f"eq_level: operands on {buf.device} and {r_j.device}")
+    if not buf.is_cuda:
+        return eq_level_plain(ctx, buf, r_j)
+    _cuda.require_kernel_words(n)
+    out = buf.new_empty((2 * buf.shape[0], n))
+    q = _cuda.modulus_words(ctx)
+    with _cuda.on_device(out):
+        rc = _cuda.lib(n).zt_eq_level(
+            out.data_ptr(), buf.data_ptr(), r_j.data_ptr(), buf.shape[0], n, q.ctypes.data,
+            ctx.nprime32, _cuda.stream_ptr(out.device),
+        )
+    _cuda.check(rc, "eq_level")
+    _cuda.LAUNCHES["eq_level"] += 1
+    return out

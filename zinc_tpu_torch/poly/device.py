@@ -3,7 +3,8 @@
 A table is a (B, n32) int32 tensor of Montgomery residues, B = 2^num_vars,
 with the first variable as the fastest index bit (entries 2i and 2i+1 pair
 up), as in ``zinc_tpu/poly/device.py``.  Large products go through the K1
-wrapper, so they run the CUDA kernel on a CUDA tensor.
+wrapper and eq tables through the eq-level wrapper, so they run CUDA
+kernels on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from ..fields.config import FieldConfig, Fp
 from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField, device_field
-from ..ops.field_kernels import mont_mul
+from ..ops.field_kernels import eq_level, eq_level_plain, mont_mul
 
 
 def fps_to_limbs(fes: list[Fp], cfg: FieldConfig) -> np.ndarray:
@@ -60,18 +61,28 @@ def evaluate_mle_device(cfg: FieldConfig, table: torch.Tensor, point: list[Fp]) 
     return limbs_to_fp(table[0], cfg)
 
 
-def eq_levels(ctx: DeviceField, r: torch.Tensor) -> list[torch.Tensor]:
-    """All levels of the eq recurrence for r (s, n32): element k is the eq
-    table of r[k:] (2^(s−k) entries, bit j ↔ r[k+j]); element s is [1̂]."""
+def _eq_levels(ctx: DeviceField, r: torch.Tensor, level) -> list[torch.Tensor]:
     s = r.shape[0]
-    buf = fm.to_tensor(ctx.one[None, :], r.device)
+    buf = fm.narrow(ctx.const("one", r.device))[None, :]  # cached on the device: no host copy
     levels = [buf]
     for j in range(s - 1, -1, -1):
-        t = mont_mul(ctx, buf, r[j])
-        lo = fm.mont_sub(ctx, buf, t)
-        buf = torch.stack([lo, t], dim=1).reshape(-1, ctx.n32)
+        buf = level(ctx, buf, r[j])
         levels.append(buf)
     return levels[::-1]
+
+
+def eq_levels(ctx: DeviceField, r: torch.Tensor) -> list[torch.Tensor]:
+    """All levels of the eq recurrence for r (s, n32) on its device: element
+    k is the eq table of r[k:] (2^(s−k) entries, bit j ↔ r[k+j]); element s
+    is [1̂].  One ``eq_level`` call a variable: a launch on a CUDA tensor."""
+    return _eq_levels(ctx, r, eq_level)
+
+
+def eq_levels_plain(ctx: DeviceField, r: torch.Tensor) -> list[torch.Tensor]:
+    """The plain PyTorch version of :func:`eq_levels` (any device), one
+    ``eq_level_plain`` a variable: what the kernel is held against on the
+    card."""
+    return _eq_levels(ctx, r, eq_level_plain)
 
 
 def _eq_table_device(ctx: DeviceField, r: torch.Tensor) -> torch.Tensor:

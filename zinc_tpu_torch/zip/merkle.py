@@ -9,7 +9,7 @@ reference (little-endian word order, big-endian bytes within each 64-bit
 word — zinc/src/field/int.rs:201-210); level merges hash the
 64-byte concatenation of the child digests.
 
-The batched device implementation (ops/blake3_kernel.py + zip/device.py)
+The batched device implementation (ops/blake3.py + zip/device.py)
 produces bit-identical trees; this host version is its oracle and the
 fallback for tiny sizes.
 """
