@@ -12,7 +12,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    the BLAKE3 library, every nvcc process at once, with each kernel's
    registers and spills, and the instruction mix (IMAD, IADD3.X, other)
    in the SASS of mont_mul_kernel (one product), of the generic kernels,
-   of eq_level_kernel and of blake3_leaves_kernel (its largest block: a
+   of eq_table_kernel and of blake3_leaves_kernel (its largest block: a
    leaf's compression), whole and in their largest basic blocks (a pass's
    products);
 1. each CUDA kernel against its plain PyTorch version at the shapes the
@@ -25,17 +25,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    device-only times; then fold_round_eval at each of the 13 round shapes of
    paths A and B, with the sums over the rounds; fold and fold_round_eval
    also with r on the card (the device-resident Fiat-Shamir loop's form);
-   the eq table of 2^20 entries (eq_level, one launch a level) at 8, 6 and
-   16 words, and the BLAKE3 Merkle tree of the 2^20 commit (1024 rows of
-   2048 codewords of 8 words in int64 lanes): the leaves launch, the merge
-   launch and the whole tree;
+   the eq table of 2^20 entries (eq_table, one launch: every level, and
+   level 0 alone) at 8, 6 and 16 words and of 2^10 and 2^11 entries (one
+   block, two blocks) at 8 words, and the BLAKE3 Merkle tree of the 2^20
+   commit (1024 rows of 2048 codewords of 8 words in int64 lanes): the
+   leaves launch, the merge launch and the whole tree;
 1b. fs_round (the device-resident Fiat-Shamir round, csrc/fs.cu) against
    its plain version, equal in every word it writes, at the shapes the
    paths give it (bench_kernels.fs_cases: the R1CS sumchecks on one block
    and on four, path A's generic comb, sponge positions that cross a
-   block) at 8, 6 and 16 words, with its device-only time beside the launch
-   floor; fold and fold_round_eval with r on the card equal to their
-   host-word forms;
+   block, and shapes again at other positions) at 8, 6 and 16 words, with
+   its device-only time and Keccak-f permutations beside the launch floor
+   and each width's fit of time to permutations; fold and fold_round_eval
+   with r on the card equal to their host-word forms;
 2. 2^10: the port's prove reproduces tests/golden/proof_2p10.bin byte for
    byte through the kernels, its verifier accepts it, and both tamper
    probes are rejected; every kernel of the dummy-R1CS path launched, and
@@ -158,7 +160,7 @@ KERNELS = {
     "blake3_merge": ("cuda", "zinc_tpu_torch/csrc/blake3.cu",
                      "zinc_tpu/ops/blake3_kernel.py:117 (merge_pairs_batch, XLA, not Pallas), "
                      ":48 (compress_batch), in merkle_tree_device's level loop (:171)"),
-    "eq_level": ("cuda", "zinc_tpu_torch/csrc/mont_mul.cu",
+    "eq_table": ("cuda", "zinc_tpu_torch/csrc/eq.cu",
                  "zinc_tpu/poly/device.py:70 (_eq_table_device, XLA, not Pallas); "
                  "zinc_tpu/sumcheck/mxu_exec.py:835 (build_eq_suffix_flat, XLA, not Pallas)"),
 }
@@ -166,7 +168,7 @@ KERNELS = {
 # on one device, on a mesh and on every rank of a mesh over processes: every
 # prove builds eq tables and commits; a commit whose rows are deeper than a
 # leaves launch merges also launches blake3_merge (with_merges)
-EQ_TREE_KERNELS = ("eq_level", "blake3_leaves")
+EQ_TREE_KERNELS = ("eq_table", "blake3_leaves")
 R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round") + EQ_TREE_KERNELS
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
 PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS + EQ_TREE_KERNELS
@@ -266,7 +268,7 @@ def phase0() -> dict:
     return info
 
 
-SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel", "eq_level_kernel", "blake3_leaves_kernel")
+SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel", "eq_table_kernel", "blake3_leaves_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -416,13 +418,15 @@ def _flat(x):
 
 
 def phase1(cfg8, cfg6, info: dict) -> dict:
-    """Every case of bench_kernels at 2^20 (256 bits) and at 2^16 (192 bits)
-    against its plain version; returns the kernels-line numbers of each
-    kernel (its first 256-bit case; max_abs_err over all its cases)."""
+    """Every case of bench_kernels at 2^20 at 256 and 192 bits, the eq table
+    also at 512 bits and at 2^10 and 2^11 entries, against its plain
+    version; returns the kernels-line numbers of each kernel (its first
+    256-bit case; max_abs_err over all its cases)."""
     import torch
 
     from zinc_tpu_torch.benches import bench_kernels as bk
     from zinc_tpu_torch.fields.montgomery import device_field
+    from zinc_tpu_torch.ops.field_kernels import eq_block_levels
 
     floor_ms = bk.launch_floor_ms()
     results = {"_launch_floor_ms": floor_ms}
@@ -433,7 +437,12 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
         for c in bk.cases(ctx, "cuda", log_n):
             _check_case(c, ctx.n32, info, floor_ms, results)
         compare_generic(ctx, log_n)
-    _check_case(bk.eq_case(device_field(_field_of_words(16)), "cuda"), 16, info, floor_ms, results)
+    for c in bk.eq_cases(device_field(bk.field_of_words(16)), "cuda"):
+        _check_case(c, 16, info, floor_ms, results)
+    ctx8 = device_field(cfg8)
+    e = eq_block_levels(ctx8.n32, 20)
+    for log_n in (e, e + 1):  # one block, two blocks
+        _check_case(bk.eq_cases(ctx8, "cuda", log_n)[0], 8, info, floor_ms, results)
     for c in bk.merkle_cases("cuda"):
         _check_case(c, 0, info, floor_ms, results)
     k10_rounds(device_field(cfg8), info)
@@ -462,8 +471,9 @@ def _check_case(c: dict, n32: int, info: dict, floor_ms: float, results: dict) -
         floor = (f" issue-slot floor "
                  f"{issue_floor_ms(c['full'], c['lazy'], info['per_product'], info['max_sm_mhz']):.4f} ms")
     if c["launch_bound"]:
-        floor += (f" bound with the launch floor of {c['launches']} launches "
-                  f"{max(bound, c['launches'] * floor_ms):.4f} ms")
+        launches = bk.launches_of(c["kernel"])
+        floor += (f" bound with the launch floor of {launches} launches "
+                  f"{max(bound, launches * floor_ms):.4f} ms")
     work = (f"{c['int_ops'][0]} ALU-only of {c['int_ops'][1]} integer instructions"
             if c["int_ops"][1] else f"{c['full']} + {c['lazy']} unreduced products")
     shapes = [tuple(g.shape) for g in got]
@@ -537,26 +547,13 @@ def compare_generic(ctx, log_n: int) -> None:
 # phase 1b: fs_round, and the two sumcheck drivers
 # ---------------------------------------------------------------------------
 
-FS_WIDTHS = (8, 6, 16)  # n64 = 4 (every path), 3 and 8 (the widest field)
-
-
-def _field_of_words(n32: int):
-    """A field of n32 words for fs_round's cases: q = 2^(32·n32 − 1) plus a
-    small odd offset (2^255 + 95 at 8 words), so that the challenge masks
-    of 8, 6 and 16 words take the regimes under 2^256, under 2^256 with a
-    masked top half, and from 2^256 on.  Only the words matter to a case,
-    so q need not be prime."""
-    import zinc_tpu_torch as zt
-
-    q = (1 << (32 * n32 - 1)) + (95 if n32 == 8 else 2 * n32 + 1)
-    return zt.FieldConfig(q, n32 // 2)
-
-
 def phase_fs(info: dict, floor_ms: float) -> dict:
     """(a) fs_round against its plain version, exactly equal in every word it
     writes (sponge, s(t), r, pref), at each shape of
     bench_kernels.fs_cases and 8, 6 and 16 words, with its device-only time
-    beside the launch floor; (b) fold and fold_round_eval with r on the card
+    and Keccak-f permutations beside the launch floor, and each width's fit
+    of time to permutations (bench_kernels.fit_permutations: the time a
+    permutation, and of the rest of each shape); (b) fold and fold_round_eval with r on the card
     equal to their host-word forms at 2^20.  Returns fs_round's
     kernels-line row (its first case)."""
     import numpy as np
@@ -569,8 +566,9 @@ def phase_fs(info: dict, floor_ms: float) -> dict:
     from zinc_tpu_torch.sumcheck.device_fs import fs_round, fs_round_plain
 
     row = None
-    for n32 in FS_WIDTHS:
-        ctx = device_field(_field_of_words(n32))
+    for n32 in bk.FS_WORDS:
+        ctx = device_field(bk.field_of_words(n32))
+        fit = []
         for c in bk.fs_cases(ctx, "cuda"):
             got, want = c["inputs"](), c["inputs"]()
             fs_round(ctx, *got)
@@ -585,18 +583,22 @@ def phase_fs(info: dict, floor_ms: float) -> dict:
             plain_args = c["inputs"]()
             plain_ms = _time_ms(lambda: fs_round_plain(ctx, *plain_args), 3)
             bound, by = bk.bound_ms(n32, c["bytes"], c["full"], 0, info["max_sm_mhz"])
-            log(f"[fs_round] {c['shape']}: max_abs_err {err} device-only {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms bound {bound:.6f} ms ({by}; {c['full']} products, "
-                f"{c['bytes']} bytes) launch floor {floor_ms:.4f} ms, time / floor "
-                f"{ms / floor_ms:.2f}")
+            fit.append((c["group"], c["permutations"], ms))
+            log(f"[fs_round] {c['shape']}: max_abs_err {err} device-only {ms:.4f} ms, "
+                f"{c['permutations']} permutations, plain {plain_ms:.4f} ms bound {bound:.6f} ms "
+                f"({by}; {c['full']} products, {c['bytes']} bytes) launch floor {floor_ms:.4f} "
+                f"ms, time / floor {ms / floor_ms:.2f}")
             if not exact:
                 raise AssertionError(f"fs_round disagrees with its plain version: {c['shape']}")
             if row is None:
                 row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": by, "library_ms": None, "launch_floor_ms": floor_ms}
             row["max_abs_err"] = max(row["max_abs_err"], err)
+        rest, per = bk.fit_permutations(fit)
+        log(f"[fs_round fit] {n32} words: {per:.5f} ms a permutation; the rest by shape (ms): "
+            + json.dumps({g: round(a, 5) for g, a in rest.items()}))
 
-    ctx = device_field(_field_of_words(8))
+    ctx = device_field(bk.field_of_words(8))
     rng = np.random.default_rng(24)
     tabs = bk.random_residues(rng, ctx, (6, 1 << 20), "cuda")
     r = bk.random_residues(rng, ctx, (1,), "cpu")[0].numpy().view(np.uint32)

@@ -10,6 +10,8 @@ machine has none.
 """
 
 import random
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -202,6 +204,114 @@ def test_fs_round_rejects_bad_inputs():
         dfs.fs_round(ctx, sp.state, 0, sums, coeffs, evals, rs, 0, beta=rs)  # beta without pref
     with pytest.raises(ValueError):
         dfs.fs_round(ctx, sp.state[:50], 0, sums, coeffs, evals, rs, 0)
+    with pytest.raises(ValueError):  # more terms than the kernel's lanes
+        dfs.fs_round(ctx, sp.state, 0, sums.expand(1, 33, 3, 8), coeffs.expand(33, 8), evals, rs,
+                     0)
+
+
+# ---------------------------------------------------------------------------
+# the warp-spread permutation of csrc/keccak.cuh, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _cuh_table(name: str) -> np.ndarray:
+    """The per-lane table ``name`` of csrc/keccak.cuh, as the kernel reads it."""
+    src = (Path(kk.__file__).resolve().parent.parent / "csrc" / "keccak.cuh").read_text()
+    body = re.search(rf"\b{name}\[\d+\] = \{{([^}}]*)\}}", src).group(1)
+    return np.array([int(x.strip().rstrip("u"), 0) for x in body.split(",") if x.strip()],
+                    dtype=np.uint64)
+
+
+def _funnel_l(lo: np.ndarray, hi: np.ndarray, n) -> np.ndarray:
+    """__funnelshift_l(lo, hi, n): the top 32 bits of (hi:lo) << (n mod 32)."""
+    n = np.asarray(n, dtype=np.uint64) & np.uint64(31)
+    return (((hi << np.uint64(32) | lo) << n) >> np.uint64(32)) & np.uint64(M32)
+
+
+def _warp_f1600(lo: np.ndarray, hi: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """keccak_f1600_warp on the 32 lanes' (lo, hi) registers, a shuffle from
+    lane k being an index by k, with keccak_lanes' sources and the ρ, π and
+    ι tables parsed out of the header."""
+    rho, pi, rc = (_cuh_table(n) for n in ("keccak_rho", "keccak_pi_src", "keccak_rc"))
+    lane = np.arange(32)
+    l = np.where(lane < 25, lane, lane - 25)
+    x, y = l % 5, l // 5
+    cols = [x + 5 * ((y + 1 + i) % 5) for i in range(4)]
+    src = pi[l].astype(np.int64)
+    rot = rho[src]
+    chi1, chi2 = (x + 1) % 5 + 5 * y, (x + 2) % 5 + 5 * y
+    first = lane == 0
+    for rnd in range(24):
+        cl, ch = lo.copy(), hi.copy()
+        for c in cols:
+            cl, ch = cl ^ lo[c], ch ^ hi[c]
+        pl, ph = cl[(x + 1) % 5], ch[(x + 1) % 5]
+        lo = lo ^ cl[(x + 4) % 5] ^ _funnel_l(ph, pl, 1)
+        hi = hi ^ ch[(x + 4) % 5] ^ _funnel_l(pl, ph, 1)
+        bl, bh = lo[src], hi[src]
+        swap = (rot & np.uint64(32)) != 0
+        sl, sh = np.where(swap, bh, bl), np.where(swap, bl, bh)
+        bl, bh = _funnel_l(sh, sl, rot), _funnel_l(sl, sh, rot)
+        lo = bl ^ (~bl[chi1] & bl[chi2] & np.uint64(M32)) ^ np.where(first, rc[2 * rnd], 0)
+        hi = bh ^ (~bh[chi1] & bh[chi2] & np.uint64(M32)) ^ np.where(first, rc[2 * rnd + 1], 0)
+    return lo, hi
+
+
+def test_warp_keccak_schedule_matches_the_permutation():
+    """The lane tables of csrc/keccak.cuh and the warp's round schedule give
+    Keccak-f[1600] (hashing/keccak.py) on random states; lanes 25-31 hold
+    what lanes 0-6 held and are never read by a real lane."""
+    rng = np.random.default_rng(60)
+    for _ in range(4):
+        state = [int(v) for v in rng.integers(0, 1 << 64, 25, dtype=np.uint64)]
+        want = list(state)
+        keccak.keccak_f1600(want)
+        lo = np.array([v & M32 for v in state] + [0xDEADBEEF] * 7, dtype=np.uint64)
+        hi = np.array([v >> 32 for v in state] + [0x01234567] * 7, dtype=np.uint64)
+        glo, ghi = _warp_f1600(lo, hi)
+        assert [int(a) | int(b) << 32 for a, b in zip(glo[:25], ghi[:25])] == want
+
+
+def test_keccak_tables_follow_fips_202():
+    """ρ offsets from the (t+1)(t+2)/2 walk, π sources as the inverse of
+    x + 5y → y + 5·((2x + 3y) mod 5), ι as the reference's round constants."""
+    rho = [0] * 25
+    x, y = 1, 0
+    for t in range(24):
+        rho[x + 5 * y] = (t + 1) * (t + 2) // 2 % 64
+        x, y = y, (2 * x + 3 * y) % 5
+    assert _cuh_table("keccak_rho").tolist() == rho
+    src = [0] * 25
+    for x in range(5):
+        for y in range(5):
+            src[y + 5 * ((2 * x + 3 * y) % 5)] = x + 5 * y
+    assert _cuh_table("keccak_pi_src").tolist() == src
+    rc = _cuh_table("keccak_rc").tolist()
+    assert [lo | hi << 32 for lo, hi in zip(rc[::2], rc[1::2])] == list(keccak._RC)
+
+
+@pytest.mark.parametrize("n64", [3, 4, 8])
+def test_fs_permutations_count_the_sponges_blocks(n64, monkeypatch):
+    """bench_kernels.fs_permutations is the number of Keccak-f calls the
+    plain round makes, in every case of fs_cases and at every fill level."""
+    from zinc_tpu_torch.benches.bench_kernels import field_of_words, fs_cases, fs_permutations
+
+    calls = []
+    real = kk.keccak_f1600
+    monkeypatch.setattr(kk, "keccak_f1600", lambda lanes: calls.append(1) or real(lanes))
+    ctx = fm.device_field(field_of_words(2 * n64))
+    cases = fs_cases(ctx, "cpu")
+    for c in cases:
+        calls.clear()
+        dfs.fs_round_plain(ctx, *c["inputs"]())
+        assert len(calls) == c["permutations"], c["shape"]
+    args = list(cases[0]["inputs"]())
+    for pos in range(0, kk.RATE, 7):
+        calls.clear()
+        dfs.fs_round_plain(ctx, *(args[:1] + [pos] + args[2:]))
+        assert len(calls) == fs_permutations(2 * n64, 4, pos)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""The port's eq tables (``zinc_tpu_torch/poly/device.py:eq_levels``, one
-``ops/field_kernels.eq_level`` a level) against the JAX package's jitted eq
-programs on the CPU: the full table against ``poly/device.py:
-_eq_table_device`` and every level against the Gruen suffix levels of
-``sumcheck/mxu_exec.py:build_eq_suffix_flat``, at 1 to 10 variables over
-192-, 256- and 512-bit fields.  Exact equality of the residues' words.
-The kernel itself is held against the plain level on the card in
+"""The port's eq tables (``zinc_tpu_torch/poly/device.py:eq_levels`` and
+``_eq_table_device``, views of one ``ops/field_kernels.eq_table`` buffer)
+against the JAX package's jitted eq programs on the CPU: the full table
+against ``poly/device.py:_eq_table_device`` and every level against the
+Gruen suffix levels of ``sumcheck/mxu_exec.py:build_eq_suffix_flat``, at 0
+to 11 variables over 192-, 256- and 512-bit fields (11 is one more than a
+block of ``csrc/eq.cu`` doubles its entry).  Exact equality of the
+residues' words; the buffer's layout and the wrapper's refusals.  The
+kernel itself is held against the plain levels on the card in
 ``tests/test_torch_kernels.py``."""
 
 import random
@@ -23,8 +25,8 @@ from zinc_tpu_torch.fields import montgomery as fm
 from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.ops import _cuda
 from zinc_tpu_torch.ops import field_kernels as fk
-from zinc_tpu_torch.poly.device import (build_eq_table_device, eq_levels, eq_levels_plain,
-                                        fps_to_tensor)
+from zinc_tpu_torch.poly.device import (_eq_table_device, build_eq_table_device, eq_levels,
+                                        eq_levels_plain, fps_to_tensor)
 
 MODULI = {3: (1 << 191) + 5, 4: (1 << 255) + 95, 8: (1 << 511) + 187}
 
@@ -51,7 +53,7 @@ def _bit_reversed(vals: list[int], bits: int) -> list[int]:
 
 
 @pytest.mark.parametrize("n64", [3, 4, 8])
-@pytest.mark.parametrize("s", range(1, 11))
+@pytest.mark.parametrize("s", range(1, 12))
 def test_eq_levels_match_jax(n64, s):
     cfg, jcfg, vals = _point(n64, s)
     r = [cfg.fp(v) for v in vals]
@@ -76,9 +78,9 @@ def test_eq_level_cpu_tensors_take_the_plain_version():
     cfg, _, vals = _point(4, 6)
     ctx = fm.device_field(cfg)
     r = fps_to_tensor([cfg.fp(v) for v in vals], cfg, "cpu")
-    buf = eq_levels(ctx, r[1:])[0]
     _cuda.reset_launches()
-    assert torch.equal(fk.eq_level(ctx, buf, r[0]), fk.eq_level_plain(ctx, buf, r[0]))
+    assert torch.equal(fk.eq_table(ctx, r), fk.eq_table_plain(ctx, r))
+    assert torch.equal(fk.eq_table(ctx, r, all_levels=False), fk.eq_table_plain(ctx, r, False))
     assert all(torch.equal(x, y) for x, y in zip(eq_levels(ctx, r), eq_levels_plain(ctx, r)))
     assert all(v == 0 for v in _cuda.LAUNCHES.values())
     assert _cuda._libs == {}  # nothing was built for CPU tensors
@@ -88,12 +90,48 @@ def test_eq_level_rejects_bad_inputs():
     cfg, _, vals = _point(4, 2)
     ctx = fm.device_field(cfg)
     r = fps_to_tensor([cfg.fp(v) for v in vals], cfg, "cpu")
-    buf = eq_levels(ctx, r[1:])[0]
     with pytest.raises(TypeError):
-        fk.eq_level(ctx, buf.to(torch.int64), r[0])
+        fk.eq_table(ctx, r.to(torch.int64))
     with pytest.raises(ValueError):
-        fk.eq_level(ctx, buf[:, :6], r[0])  # 6 words in an 8-word field
+        fk.eq_table(ctx, r[:, :6])  # 6 words in an 8-word field
     with pytest.raises(ValueError):
-        fk.eq_level(ctx, buf, r)  # r_j is one element
+        fk.eq_table(ctx, r[0])  # r is a list of points
     with pytest.raises(ValueError):
-        fk.eq_level(ctx, buf[0], r[0])  # buf is a table
+        fk.eq_table(ctx, r[None])
+    with pytest.raises(ValueError):  # more variables than the kernel takes
+        fk.eq_table(ctx, r[:1].expand(fk.EQ_MAX_VARS + 1, -1))
+
+
+@pytest.mark.parametrize("s", [0, 1, 10, 11])
+def test_eq_levels_are_views_of_one_buffer(s):
+    """Level k of ``eq_levels`` is rows 2^(s+1) − 2^(s−k+1) .. 2^(s+1) −
+    2^(s−k) of one (2^(s+1) − 1, n32) tensor, level 0 first; the level-0
+    form is that buffer's first 2^s rows, alone."""
+    cfg, _, vals = _point(4, max(s, 1))
+    ctx = fm.device_field(cfg)
+    r = fps_to_tensor([cfg.fp(v) for v in vals[:s]], cfg, "cpu")
+    levels = eq_levels(ctx, r)
+    buf = fk.eq_table(ctx, r)
+    assert tuple(buf.shape) == ((2 << s) - 1, 8)
+    assert len(levels) == s + 1
+    base = levels[0].untyped_storage().data_ptr()
+    for k, x in enumerate(levels):
+        assert tuple(x.shape) == (1 << (s - k), 8) and x.is_contiguous()
+        assert x.untyped_storage().data_ptr() == base
+        assert x.storage_offset() == ((2 << s) - (2 << (s - k))) * 8
+    assert torch.equal(torch.cat(levels), buf)
+    assert torch.equal(torch.cat(levels), torch.cat(eq_levels_plain(ctx, r)))
+    assert _ints(levels[s]) == [cfg.one().m]
+    first = _eq_table_device(ctx, r)
+    assert tuple(first.shape) == (1 << s, 8) and first.storage_offset() == 0
+    assert torch.equal(first, levels[0])
+
+
+@pytest.mark.parametrize("n64", [3, 8])
+def test_eq_table_of_no_variables_is_one(n64):
+    cfg, jcfg, _ = _point(n64, 1)
+    ctx = fm.device_field(cfg)
+    r = fps_to_tensor([], cfg, "cpu").reshape(0, 2 * n64)
+    assert _ints(fk.eq_table(ctx, r)) == _ints(fk.eq_table(ctx, r, False)) == [cfg.one().m]
+    assert _ints(build_eq_table_device(cfg, [], "cpu")) == _jax_ints(
+        j_build_eq_table_device(jcfg, []))

@@ -283,7 +283,7 @@ def test_cuda_tensors_launch_the_kernels(cuda_device, ctx):
     sk.round_eval_gruen(ctx, tabs, a[:32].contiguous(), [(0,), (1,)], 3)
     assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 1,
                               "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0,
-                              "blake3_leaves": 0, "blake3_merge": 0, "eq_level": 0}
+                              "blake3_leaves": 0, "blake3_merge": 0, "eq_table": 0}
 
 
 @pytest.mark.cuda
@@ -512,6 +512,66 @@ def test_fs_round_matches_plain_on_cuda(cuda_device, q, n64):
                 assert torch.equal(g, w), case["shape"]
 
 
+def _fs_equal(c, inputs) -> None:
+    """fs_round on the card and its plain version on copies of ``inputs``:
+    one launch, every tensor written equal word for word."""
+    from zinc_tpu_torch.sumcheck import device_fs as dfs
+
+    got, want = inputs(), inputs()
+    _cuda.reset_launches()
+    dfs.fs_round(c, *got)
+    assert _cuda.LAUNCHES["fs_round"] == 1
+    dfs.fs_round_plain(c, *want)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gruen", [False, True])
+def test_fs_round_at_every_sponge_position_on_cuda(cuda_device, gruen):
+    """The R1CS sumcheck-1 shape (2 terms, 4 points) at 8 words from every
+    fill level 0..135 of the sponge, with and without Gruen's ratchet."""
+    from zinc_tpu_torch.ops.keccak_kernel import RATE, STATE_WORDS
+
+    c = fm.device_field(FieldConfig(Q, 4))
+    rng = np.random.default_rng(90)
+    state = fm.to_tensor(rng.integers(0, 1 << 32, STATE_WORDS, dtype=np.uint64).astype(np.uint32),
+                         cuda_device)
+    t = {k: _residues(c, shape, 91 + i, cuda_device) for i, (k, shape) in
+         enumerate([("sums", (1, 2, 4)), ("coeffs", (2,)), ("evals", (3, 4)), ("rs", (3,)),
+                    ("beta", (3,)), ("pref", (1,))])}
+    for pos in range(RATE):
+        def inputs(pos=pos):
+            x = {k: v.clone() for k, v in t.items()}
+            return (state.clone(), pos, x["sums"], x["coeffs"], x["evals"], x["rs"], 1,
+                    x["beta"] if gruen else None, x["pref"][0] if gruen else None)
+
+        _fs_equal(c, inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms,pts,blocks", [(32, 3, 1), (31, 4, 2), (1, 40, 1), (3, 33, 4)])
+@pytest.mark.parametrize("n64", [3, 8])
+def test_fs_round_at_many_terms_and_points_on_cuda(cuda_device, terms, pts, blocks, n64):
+    """Gruen rounds whose terms fill the warp (32 terms: the ratchet takes a
+    step of its own) and whose points take more than one group."""
+    from zinc_tpu_torch.ops.keccak_kernel import STATE_WORDS
+
+    c = fm.device_field(FieldConfig(*next(f for f in FS_FIELDS if f[1] == n64)))
+    rng = np.random.default_rng(terms + pts)
+    state = fm.to_tensor(rng.integers(0, 1 << 32, STATE_WORDS, dtype=np.uint64).astype(np.uint32),
+                         cuda_device)
+    base = [_residues(c, shape, 95 + i, cuda_device) for i, shape in
+            enumerate([(blocks, terms, pts), (terms,), (4, pts), (4,), (4,), (1,)])]
+    for rnd in (0, 2):
+        def inputs(rnd=rnd):
+            sums, coeffs, evals, rs, beta, pref = (x.clone() for x in base)
+            return (state.clone(), 77, sums, coeffs, evals, rs, rnd, beta, pref[0])
+
+        _fs_equal(c, inputs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,n64", FS_FIELDS)
 def test_r_on_the_card_equals_host_words_on_cuda(cuda_device, q, n64):
@@ -570,7 +630,7 @@ def test_fs_enqueue_loop_syncs_nothing_on_cuda(cuda_device, tier):
 
 
 # ---------------------------------------------------------------------------
-# the BLAKE3 Merkle tree and the eq level on the card (the CPU cases, against
+# the BLAKE3 Merkle tree and the eq table on the card (the CPU cases, against
 # the JAX package: test_torch_merkle.py, test_torch_eq.py)
 # ---------------------------------------------------------------------------
 
@@ -624,34 +684,47 @@ def test_merge_levels_match_plain_on_cuda(cuda_device, rows, n, count):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,n64", FIELDS)
 def test_eq_levels_match_plain_on_cuda(cuda_device, q, n64):
-    from zinc_tpu_torch.poly.device import eq_levels, eq_levels_plain
+    """Every level, and level 0 alone, in one launch, at 0 to 2 variables,
+    at the most a block doubles its entry (e) and one more (two blocks), at
+    14 and at 22 (a scan of 12 factors)."""
+    from zinc_tpu_torch.poly.device import _eq_table_device, eq_levels, eq_levels_plain
 
     c = fm.device_field(FieldConfig(q, n64))
-    for s in (1, 9, 14):
+    e = fk.eq_block_levels(c.n32, 30)
+    for s in (0, 1, 2, e, e + 1, 14, 22):
         r = _residues(c, (s,), 70 + s, cuda_device)
         _cuda.reset_launches()
         got = eq_levels(c, r)
-        assert _cuda.LAUNCHES["eq_level"] == s and _cuda.LAUNCHES["mont_mul"] == 0
+        first = _eq_table_device(c, r)
+        assert _cuda.LAUNCHES["eq_table"] == 2 and _cuda.LAUNCHES["mont_mul"] == 0
         want = eq_levels_plain(c, r)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert len(got) == s + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), s
+        assert torch.equal(first, want[0]) and first.shape[0] == 1 << s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n64", [3, 4, 8])
+def test_eq_table_of_2p20_matches_plain_on_cuda(cuda_device, n64):
+    c = fm.device_field(FieldConfig(*next(f for f in FIELDS if f[1] == n64)))
+    r = _residues(c, (20,), 77, cuda_device)
+    want = fk.eq_table_plain(c, r)
+    assert torch.equal(fk.eq_table(c, r), want)
+    assert torch.equal(fk.eq_table(c, r, all_levels=False), want[: 1 << 20])
 
 
 @pytest.mark.cuda
 def test_merkle_and_eq_wrappers_refuse_on_cuda(cuda_device, ctx):
     from zinc_tpu_torch.ops import blake3 as b3
 
-    buf = _residues(ctx, (64,), 80, cuda_device)
-    r = _residues(ctx, (2,), 81, cuda_device)
+    r = _residues(ctx, (4,), 81, cuda_device)
     with pytest.raises(ValueError):
-        fk.eq_level(ctx, buf, r[0].cpu())  # operands on two devices
+        fk.eq_table(ctx, r.reshape(-1)[2:26].reshape(3, 8))  # off its 16-byte alignment
     with pytest.raises(ValueError):
-        fk.eq_level(ctx, buf, r.reshape(-1)[2:10])  # r_j off its 16-byte alignment
-    with pytest.raises(ValueError):
-        fk.eq_level(ctx, buf[::2], r[0])  # not contiguous
+        fk.eq_table(ctx, r[::2])  # not contiguous
     big = fm.device_field(FieldConfig((1 << 575) + 1515, 9))  # 18 words: no kernel width
     with pytest.raises(ValueError):
-        fk.eq_level(big, _residues(big, (4,), 82, cuda_device), _residues(big, (1,), 83,
-                                                                         cuda_device)[0])
+        fk.eq_table(big, _residues(big, (4,), 82, cuda_device))
     enc = _codewords((2, 8, 4), torch.int32, 84, cuda_device)
     with pytest.raises(TypeError):
         b3.merkle_tree_device(enc.to(torch.float32), 2)

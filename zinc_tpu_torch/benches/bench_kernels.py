@@ -21,10 +21,20 @@ integer instructions at their fewest, per pipe.  Its xors and rotations
 may also issue as IMAD on the FMA pipe, so all its instructions
 (``COMPRESS_OPS``) share the SM's issue rate, 128 lanes a clock.
 
+A call so small that its launches bound it (the eq table, fs_round, path
+B's last fold) also reports its launches, counted in ``_cuda.LAUNCHES``
+over one call (:func:`launches_of`), times the launch floor.  fs_round's
+cases carry their Keccak-f permutations (:func:`fs_permutations`), and
+each width's times are fitted to them (:func:`fit_permutations`: the time
+a permutation, and of the rest of each shape); the host wall of one 2^20
+``eq_levels`` call is timed with a sync after it (:func:`eq_host_ms`).
+
 ``--root`` times the kernels of another checkout of the port with the same
-cases (its ``zinc_tpu_torch`` is imported instead of this one's), so that
-two versions can be compared in one call on one card.  The field is
-q = 2^255 + 95 (n64 = 4), the tables random residues from a seed.  Prints
+cases (its ``zinc_tpu_torch`` is imported instead of this one's; the cases
+call only wrappers every checkout since the eq kernels has), so that two
+versions can be compared in one call on one card.  The field is q = 2^255
++ 95 (n64 = 4), and 2^(32·n32 − 1) plus a small offset at the other widths
+(:func:`field_of_words`), the tables random residues from a seed.  Prints
 the card, then one JSON line per case.  ``chip_smoke.py`` takes its cases,
 its timer and its bounds from here.
 """
@@ -164,9 +174,8 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
     :func:`round_products`) and bytes moved.  The first case of each kernel
     is the one its kernels-line row reports.  ``launch_bound`` marks the
     case so small that the launch floor (:func:`launch_floor_ms`) times its
-    ``launches``, not its bytes, bounds it: path B's last fold, K6's shape,
-    and the eq table's 2^log_n levels (one launch a level, the last ones
-    of a few entries).  The eq table's case (:func:`eq_case`) is the last."""
+    launches (:func:`launches_of`), not its bytes, bounds it: path B's last
+    fold, K6's shape, and the eq tables (:func:`eq_cases`, the last two)."""
     import numpy as np
 
     from zinc_tpu_torch.fields import montgomery as fm
@@ -236,33 +245,50 @@ def cases(ctx, device, log_n: int = 20, seed: int = 20) -> list[dict]:
              lambda: sk.fold_round_eval(ctx, sc6, r_dev, t_a, 6),
              lambda: sk.fold_round_eval_plain(ctx, sc6, r, t_a, 6),
              folded_round(6 * h, t_a, 6), 6 * (n + h) * eb),
-        eq_case(ctx, device, log_n),
-    ]
+    ] + eq_cases(ctx, device, log_n)
 
 
-def _case(name, shape, kernel, plain, products, n_bytes, launch_bound=False, launches=1,
-          int_ops=(0, 0)):
+def _case(name, shape, kernel, plain, products, n_bytes, launch_bound=False, int_ops=(0, 0)):
     full, lazy = products if isinstance(products, tuple) else (products, 0)
     return {"name": name, "shape": shape, "kernel": kernel, "plain": plain, "full": full,
-            "lazy": lazy, "bytes": n_bytes, "launch_bound": launch_bound, "launches": launches,
-            "int_ops": int_ops}
+            "lazy": lazy, "bytes": n_bytes, "launch_bound": launch_bound, "int_ops": int_ops}
 
 
-def eq_case(ctx, device, log_n: int = 20, seed: int = 25) -> dict:
-    """The eq table of a random point of log_n variables, all its levels, as
-    the executor's Gruen levels and the eq tables of Spartan and the open
-    build it: log_n eq-level launches, 2^log_n − 1 Montgomery products, and
-    each level's input read and output written once (3·(2^log_n − 1)
-    residues)."""
+def launches_of(fn) -> int:
+    """The kernel launches one call of ``fn`` makes (``_cuda.LAUNCHES``,
+    every kernel), whatever the checkout's design: the launch floor bounds a
+    small call by its launches."""
+    from zinc_tpu_torch.ops import _cuda
+
+    before = sum(_cuda.LAUNCHES.values())
+    fn()
+    return sum(_cuda.LAUNCHES.values()) - before
+
+
+def eq_cases(ctx, device, log_n: int = 20, seed: int = 25) -> list[dict]:
+    """The eq table of a random point of log_n variables: all its levels, as
+    the executor's Gruen levels build it (``poly/device.eq_levels``), and its
+    level 0 alone, as Spartan's, the open's and the verifier's tables take it
+    (``_eq_table_device``).  Either needs 2^log_n − 1 Montgomery products
+    (one a pair of entries, the other entry a subtraction); its bytes are
+    the point read once and every level it returns written once:
+    2^(log_n+1) − 1 residues for all levels, 2^log_n for level 0.  Both
+    calls exist in every checkout since the eq kernels were ported, so
+    ``--root`` times an older one with the same cases."""
     import numpy as np
 
-    from zinc_tpu_torch.poly.device import eq_levels, eq_levels_plain
+    from zinc_tpu_torch.poly.device import _eq_table_device, eq_levels, eq_levels_plain
 
     r = random_residues(np.random.default_rng(seed), ctx, (log_n,), device)
-    n = 1 << log_n
-    return _case("eq_level", f"2^{log_n} eq table, {log_n} levels",
-                 lambda: eq_levels(ctx, r), lambda: eq_levels_plain(ctx, r),
-                 n - 1, 3 * (n - 1) * 4 * ctx.n32, launch_bound=True, launches=log_n)
+    n, eb = 1 << log_n, 4 * ctx.n32
+    return [
+        _case("eq_table", f"2^{log_n} eq table, all {log_n + 1} levels",
+              lambda: eq_levels(ctx, r), lambda: eq_levels_plain(ctx, r),
+              n - 1, (log_n + 2 * n - 1) * eb, launch_bound=True),
+        _case("eq_table", f"2^{log_n} eq table, level 0 only",
+              lambda: _eq_table_device(ctx, r), lambda: eq_levels_plain(ctx, r)[0],
+              n - 1, (log_n + n) * eb, launch_bound=True),
+    ]
 
 
 def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4,
@@ -325,18 +351,47 @@ def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4,
     ]
 
 
+FS_WORDS = (8, 6, 16)  # n64 = 4 (every path), 3 and 8 (the widest field)
+
+
+def field_of_words(n32: int):
+    """A field of n32 words for fs_round's and the eq table's cases: q =
+    2^(32·n32 − 1) plus a small odd offset (2^255 + 95 at 8 words), so that
+    the challenge masks of 8, 6 and 16 words take the regimes under 2^256,
+    under 2^256 with a masked top half, and from 2^256 on.  Only the words
+    matter to a case, so q need not be prime."""
+    import zinc_tpu_torch as zt
+
+    q = (1 << (32 * n32 - 1)) + (95 if n32 == 8 else 2 * n32 + 1)
+    return zt.FieldConfig(q, n32 // 2)
+
+
+def fs_permutations(n32: int, n_pts: int, pos: int) -> int:
+    """Keccak-f permutations of one fs_round: the blocks its n_pts frames
+    (8·n32 + 4 bytes each) fill from sponge position pos, the digest's, and
+    the blocks the 34-byte ratchet and r's frame fill after them."""
+    from zinc_tpu_torch.ops.keccak_kernel import RATE
+
+    frame = 8 * n32 + 4
+    first = pos + n_pts * frame
+    return first // RATE + 1 + (first % RATE + 34 + frame) // RATE
+
+
 def fs_cases(ctx, device, seed: int = 23) -> list[dict]:
     """fs_round at the shapes the device-FS paths give it, on random inputs:
-    dicts of a shape label, ``inputs()`` (a fresh copy of the arguments
-    after ``ctx``: the call writes in place), the round's Montgomery
-    products (``full``) and bytes moved.  The R1CS sumcheck 1 (Gruen: 2
-    terms, 4 points) on one block and on four, sumcheck 2 (1 term, 3
-    points), path A's generic sumcheck 1 (2 terms, 6 points), and sponge
-    positions from 0 to 135, so that a round's absorbs start anywhere in a
-    block and cross one or several (a 16-word round at 8 points absorbs
-    1,222 bytes).  The field's width is ``ctx``'s."""
+    dicts of a shape label, ``group`` (the label without the sponge
+    position), ``inputs()`` (a fresh copy of the arguments after ``ctx``:
+    the call writes in place), the round's Montgomery products (``full``),
+    bytes moved and Keccak-f permutations (:func:`fs_permutations`).  The
+    R1CS sumcheck 1 (Gruen: 2 terms, 4 points) on one block and on four,
+    sumcheck 2 (1 term, 3 points), path A's generic sumcheck 1 (2 terms, 6
+    points) and path B's 8 points, at sponge positions from 0 to 135, so
+    that a round's absorbs start anywhere in a block and cross one or
+    several (a 16-word round at 8 points absorbs 1,222 bytes); then the
+    first and the last shape again at other positions, cases that differ
+    only in their permutations (:func:`fit_permutations`).  The field's
+    width is ``ctx``'s."""
     import numpy as np
-    import torch
 
     from zinc_tpu_torch.fields import montgomery as fm
     from zinc_tpu_torch.ops.keccak_kernel import STATE_WORDS
@@ -350,6 +405,8 @@ def fs_cases(ctx, device, seed: int = 23) -> list[dict]:
         ("path A sumcheck 1 (generic), 1 block", 1, 2, 6, False, 7, 67),
         ("path B (generic), 8 points", 1, 1, 8, False, 2, 131),
     ]
+    shapes += [shapes[0][:-1] + (pos,) for pos in (1, 67, 128, 135)]
+    shapes += [shapes[4][:-1] + (0,)]
     out = []
     for label, d, terms, pts, gruen, rnd, pos in shapes:
         rows = rnd + 2
@@ -377,9 +434,27 @@ def fs_cases(ctx, device, seed: int = 23) -> list[dict]:
         full = pts * terms + 1 + (3 + 4 * pts if gruen else 0)
         n_bytes = 4 * n * (d * terms * pts + terms + pts + 1 + (5 if gruen else 0)) \
             + 2 * 4 * STATE_WORDS
-        out.append({"shape": f"{label}, {terms} terms x {pts} points, {n} words, sponge at {pos}",
-                    "inputs": inputs, "full": full, "bytes": n_bytes})
+        group = f"{label}, {terms} terms x {pts} points, {n} words"
+        out.append({"shape": f"{group}, sponge at {pos}", "group": group, "inputs": inputs,
+                    "full": full, "bytes": n_bytes, "permutations": fs_permutations(n, pts, pos)})
     return out
+
+
+def fit_permutations(rows: list[tuple[str, int, float]]) -> tuple[dict[str, float], float]:
+    """Least squares time = a_group + b·permutations over (group, permutations,
+    ms) rows: a slope b common to every group (the time of a permutation)
+    and an intercept a for each group (what its products, loads and stores
+    take), so that cases of one shape at other sponge positions separate
+    the two.  Returns ({group: a}, b)."""
+    groups: dict[str, list[tuple[int, float]]] = {}
+    for g, p, ms in rows:
+        groups.setdefault(g, []).append((p, ms))
+    mean = {g: (sum(p for p, _ in v) / len(v), sum(t for _, t in v) / len(v))
+            for g, v in groups.items()}
+    num = sum((p - mean[g][0]) * (t - mean[g][1]) for g, v in groups.items() for p, t in v)
+    den = sum((p - mean[g][0]) ** 2 for g, v in groups.items() for p, _ in v)
+    b = num / den if den else float("nan")
+    return {g: mean[g][1] - b * mean[g][0] for g in groups}, b
 
 
 def k10_rounds(ctx, device, log_n: int = 20, seed: int = 22) -> dict[str, list[dict]]:
@@ -413,6 +488,27 @@ def k10_rounds(ctx, device, log_n: int = 20, seed: int = 22) -> dict[str, list[d
     return out
 
 
+def eq_host_ms(ctx, log_n: int = 20, calls: int = 20, seed: int = 27) -> float:
+    """Host wall of one ``eq_levels`` call of log_n variables: the host clock
+    around ``calls`` calls, each followed by a sync, over ``calls`` (the
+    wrappers' host side and the device's time together)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from zinc_tpu_torch.poly.device import eq_levels
+
+    r = random_residues(np.random.default_rng(seed), ctx, (log_n,), "cuda")
+    eq_levels(ctx, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        eq_levels(ctx, r)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -425,22 +521,47 @@ def main(argv=None) -> None:
         raise SystemExit("bench_kernels needs a CUDA device")
     import zinc_tpu_torch as zt
     from zinc_tpu_torch.fields.montgomery import device_field
+    from zinc_tpu_torch.ops import _cuda
+    from zinc_tpu_torch.sumcheck.device_fs import fs_round
 
+    _cuda.build(FS_WORDS)
     info = card()
     floor = launch_floor_ms()
     print(json.dumps({"card": info, "root": str(Path(args.root).resolve()),
                       "package": str(Path(zt.__file__).parent), "launch_floor_ms": floor}),
           flush=True)
     ctx = device_field(zt.FieldConfig((1 << 255) + 95, 4))
-    for c in cases(ctx, "cuda") + merkle_cases("cuda"):
+    todo = [(ctx.n32, c) for c in cases(ctx, "cuda")]
+    todo += [(n32, c) for n32 in FS_WORDS[1:]
+             for c in eq_cases(device_field(field_of_words(n32)), "cuda")]
+    todo += [(0, c) for c in merkle_cases("cuda")]
+    for n32, c in todo:
         ms = device_ms(c["kernel"])
-        bound, by = bound_ms(ctx.n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"],
+        bound, by = bound_ms(n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"],
                              c["int_ops"])
-        row = {"name": c["name"], "shape": c["shape"], "ms": ms, "bound_ms": bound,
+        row = {"name": c["name"], "shape": c["shape"], "words": n32, "ms": ms, "bound_ms": bound,
                "bound_by": by, "share_of_bound": bound / ms}
         if c["launch_bound"]:
-            row["bound_with_launch_floor_ms"] = max(bound, c["launches"] * floor)
+            row["launches"] = launches_of(c["kernel"])
+            row["bound_with_launch_floor_ms"] = max(bound, row["launches"] * floor)
         print(json.dumps(row), flush=True)
+    for n32 in FS_WORDS:
+        fctx = device_field(field_of_words(n32))
+        fit = []
+        for c in fs_cases(fctx, "cuda"):
+            args_ = c["inputs"]()
+            ms = device_ms(lambda: fs_round(fctx, *args_))
+            bound = bound_ms(n32, c["bytes"], c["full"], 0, info["max_sm_mhz"])[0]
+            fit.append((c["group"], c["permutations"], ms))
+            print(json.dumps({"name": "fs_round", "shape": c["shape"],
+                              "permutations": c["permutations"], "ms": ms, "bound_ms": bound,
+                              "bound_with_launch_floor_ms": max(bound, floor)}), flush=True)
+        a, b = fit_permutations(fit)
+        print(json.dumps({"name": "fs_round fit", "words": n32, "ms_per_permutation": b,
+                          "ms_besides_permutations": a}), flush=True)
+    for n32 in FS_WORDS:
+        print(json.dumps({"name": "eq_levels host wall", "shape": f"2^20, {n32} words",
+                          "ms": eq_host_ms(device_field(field_of_words(n32)))}), flush=True)
     for path, rows in k10_rounds(ctx, "cuda").items():
         times = [device_ms(row["kernel"]) for row in rows]
         bounds = [bound_ms(ctx.n32, row["bytes"], row["full"], row["lazy"], info["max_sm_mhz"])[0]

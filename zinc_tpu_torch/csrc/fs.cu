@@ -22,29 +22,45 @@
 // from the sizes (sumcheck/device_fs.py) and passed in.
 //
 // Bound: the launch floor.  A round reads a few hundred bytes and forms a
-// few dozen Montgomery products and two to ten Keccak-f permutations, so
-// the least time is that of an empty launch (0.0019 ms on the H100, PERF.md
-// and chip_smoke.py's [launch] line); what it costs beyond that is a chain
-// of dependent steps no parallelism shortens: the sponge is serial by
-// construction.  The design keeps that chain short.  One warp evaluates up
-// to ZT_FS_BLOCK points at once, a thread a point, and each thread writes
-// its point's frame into the message buffer in shared memory; then thread 0
-// absorbs the buffer's whole blocks, 17 aligned 8-byte words a block, with
-// the lanes in its registers (keccak.cuh).  No byte goes through the sponge
-// one at a time.  What the launch saves is the host's round trip: the next
-// round's kernels queue behind it with no sync.
+// few dozen Montgomery products and P Keccak-f permutations (P = 3 for the
+// R1CS sumcheck 1 at 8 words, up to 10 for path B at 16 words), so the
+// least time is that of an empty launch (0.0019 ms on the H100, PERF.md
+// and chip_smoke.py's [launch] line).  What it costs beyond that is a
+// serial chain: P permutations and the products that feed the first
+// frame, then r's.  The single-thread sponge this replaces ran that chain
+// at 5.6-15 µs a permutation (a fit over bench_kernels.fs_cases, PERF.md),
+// from a kernel of 95-168 registers and a 240-byte stack frame whose
+// unrolled permutations outgrew the instruction cache of the one SM it runs
+// on.  The design shortens both halves of the chain:
+//   * the permutation is spread over the warp (keccak.cuh): a state lane a
+//     lane, a round a handful of shuffles, its 24 rounds a loop that stays
+//     in the instruction cache; absorbing, moving the leftover bytes,
+//     padding and the sponge's load and store are a word or byte a lane;
+//   * the products run in steps of one product a lane, from one call site:
+//     step 0 forms every coeff_k · res_k(t) of a group of points at once
+//     (a lane a term and point) and the ratchet's β_{j−1}·r_{j−1}; Gruen
+//     adds step 1 (acc_t · c_t, and pref · eq on the ratchet's lane) and
+//     step 2 (· pref).  The eq factors need no product: c_t = (1 − β_j) +
+//     t·(2β_j − 1) and eq(b, r) = 1 − b − r + 2·b·r are additions, and 1̂
+//     comes in as a constant like R².  So a Gruen round's chain is 3
+//     products, then the permutations, then r's product.
+// One launch a round, one warp; the next round's kernels queue behind it
+// with no sync.
 
 #include "field.cuh"
 #include "keccak.cuh"
 
-// one warp: up to ZT_FS_BLOCK points at a time, then thread 0's sponge
+// one warp: the sponge on lanes 0-24, a term × point product a lane
 #define ZT_FS_BLOCK 32
-// the message buffer: the sponge's pending bytes and a frame a thread
+// the message buffer: the sponge's pending bytes and a frame a point of a group
 #define ZT_FS_MSG_BYTES (ZT_KECCAK_RATE + ZT_FS_BLOCK * (8 * ZT_MAX_WORDS + 4))
+// the lane of the Gruen ratchet's products
+#define ZT_FS_RATCHET_LANE (ZT_FS_BLOCK - 1)
 
 struct FsArgs {
     FieldParams f;
-    uint32_t r2[ZT_MAX_WORDS];  // R² mod q
+    uint32_t r2[ZT_MAX_WORDS];   // R² mod q
+    uint32_t one[ZT_MAX_WORDS];  // 1̂ = R mod q
     int qbits, n_blocks, n_terms, n_pts, pos, rnd;
 };
 
@@ -60,27 +76,19 @@ __device__ __forceinline__ void store_words(uint32_t* p, const uint32_t (&x)[N])
     for (int i = 0; i < N; ++i) p[i] = x[i];
 }
 
-// The small integer v in Montgomery form.
+// r = a + t·d mod q for a small t ≥ 0: double and add over t's bits.
 template <int N>
-__device__ __forceinline__ void small_to_mont(uint32_t (&r)[N], uint32_t v, const uint32_t (&r2)[N],
-                                              const FieldParams& f) {
-    uint32_t x[N];
+__device__ __forceinline__ void add_small_multiple(uint32_t (&r)[N], const uint32_t (&a)[N],
+                                                   const uint32_t (&d)[N], int t,
+                                                   const FieldParams& f) {
+    uint32_t m[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = i ? 0u : v;
-    mont_mul<N>(r, x, r2, f);
-}
-
-// e = (1 − b)(1 − x) + b·x, the eq factor of one variable.
-template <int N>
-__device__ __forceinline__ void eq_factor(uint32_t (&e)[N], const uint32_t (&b)[N],
-                                          const uint32_t (&x)[N], const uint32_t (&one)[N],
-                                          const FieldParams& f) {
-    uint32_t u[N], w[N];
-    sub_mod<N>(u, one, b, f);
-    sub_mod<N>(w, one, x, f);
-    mont_mul<N>(u, u, w, f);
-    mont_mul<N>(w, b, x, f);
-    add_mod<N>(e, u, w, f);
+    for (int i = 0; i < N; ++i) m[i] = 0;
+    for (int bit = t ? 31 - __clz(t) : -1; bit >= 0; --bit) {
+        add_mod<N>(m, m, m, f);
+        if ((t >> bit) & 1) add_mod<N>(m, m, d, f);
+    }
+    add_mod<N>(r, a, m, f);
 }
 
 template <int N>
@@ -89,102 +97,152 @@ __global__ void __launch_bounds__(ZT_FS_BLOCK) fs_round_kernel(
     const uint32_t* __restrict__ coeffs, const uint32_t* __restrict__ beta, uint32_t* pref,
     uint32_t* evals, uint32_t* rs, const FsArgs a) {
     constexpr int FRAME = 8 * N + 4;
-    __shared__ uint32_t pref_s[N];
+    __shared__ uint32_t prod_s[ZT_FS_BLOCK][N];  // step 0's products, a lane each
+    __shared__ uint32_t val_s[ZT_FS_BLOCK + 1][N];  // the group's s(t), then r: their frames
+    __shared__ uint32_t q_s[N], e_s[N], pref_s[N];
     __shared__ __align__(8) uint8_t msg[ZT_FS_MSG_BYTES];
-    __shared__ int len_s;
     const FieldParams& f = a.f;
-    const int tid = threadIdx.x;
-    uint32_t r2[N], one[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) r2[i] = a.r2[i];
-    small_to_mont<N>(one, 1u, r2, f);
-    uint64_t s[25];  // thread 0's lanes
-    if (tid == 0) {
-        sponge_load(s, msg, state, a.pos);
-        len_s = a.pos;
-        if (beta != nullptr) {
-            uint32_t p[N];
-            load_words<N>(p, pref);
-            if (a.rnd > 0) {  // pref ← pref · eq(β_{j−1}, r_{j−1})
-                uint32_t b[N], r[N], e[N];
-                load_words<N>(b, beta + (int64_t)(a.rnd - 1) * N);
-                load_words<N>(r, rs + (int64_t)(a.rnd - 1) * N);
-                eq_factor<N>(e, b, r, one, f);
-                mont_mul<N>(p, p, e, f);
-                store_words<N>(pref, p);
-            }
-            store_words<N>(pref_s, p);
-        }
+    const int lane = threadIdx.x;
+    const bool gruen = beta != nullptr;
+    const bool ratchet = gruen && a.rnd > 0;  // pref ← pref · eq(β_{j−1}, r_{j−1})
+    const KeccakLanes k = keccak_lanes(lane);
+    uint32_t lo, hi;
+    sponge_load_warp(lo, hi, msg, state, a.pos, lane);
+    int len = a.pos;
+    uint32_t one[N], c0[N], dc[N], p0[N];
+    load_words<N>(one, a.one);
+    if (lane == 0) load_words<N>(q_s, f.q);
+    if (gruen) {  // the eq factor of β_j at t: (1 − β_j) + t·(2β_j − 1), adds only
+        uint32_t b[N];
+        load_words<N>(b, beta + (int64_t)a.rnd * N);
+        sub_mod<N>(c0, one, b, f);
+        add_mod<N>(dc, b, b, f);
+        sub_mod<N>(dc, dc, one, f);
+        load_words<N>(p0, pref);
     }
-    __syncthreads();
 
     uint32_t* ev = evals + (int64_t)a.rnd * a.n_pts * N;
     const int64_t block_words = (int64_t)a.n_terms * a.n_pts * N;
-    for (int base = 0; base < a.n_pts; base += ZT_FS_BLOCK) {
-        const int t = base + tid, len = len_s;
-        if (t < a.n_pts) {
-            uint32_t acc[N];
+    // points a group: a lane for each term × point, and the ratchet's lane
+    const int per = (gruen ? ZT_FS_BLOCK - 1 : ZT_FS_BLOCK) / a.n_terms;
+    const int group = per > 0 ? per : 1;
+    // 32 Gruen terms leave no lane free in step 0: the ratchet's first
+    // product then takes a step of its own (step −1)
+    const bool own_step = ratchet && a.n_terms * group >= ZT_FS_BLOCK;
+    for (int base = 0; base < a.n_pts; base += group) {
+        const int g = a.n_pts - base < group ? a.n_pts - base : group;
+        const bool first = base == 0;
+        const bool br = ratchet && first && lane == ZT_FS_RATCHET_LANE;  // this lane's β_{j−1}·r_{j−1}
+        uint32_t acc[N];
+        // Every product of the group is one step of this loop, one product a
+        // lane: a single call site, so later steps run from the instruction
+        // cache.  Step 0: coeff_k · Σ_D sums on lane k·g + t, and the
+        // ratchet's β_{j−1}·r_{j−1}.  Gruen, step 1: acc_t · c_t, and the
+        // ratchet's pref · e; step 2: pref · (acc_t · c_t).
+        for (int step = first && own_step ? -1 : 0; step < (gruen ? 3 : 1); ++step) {
+            uint32_t x[N], y[N], u[N];
 #pragma unroll
-            for (int i = 0; i < N; ++i) acc[i] = 0;
-            for (int k = 0; k < a.n_terms; ++k) {
-                const uint32_t* sk = sums + ((int64_t)k * a.n_pts + t) * N;
-                uint32_t res[N], x[N];
-                load_words<N>(res, sk);
-                for (int d = 1; d < a.n_blocks; ++d) {
-                    load_words<N>(x, sk + d * block_words);
-                    add_mod<N>(res, res, x, f);
+            for (int i = 0; i < N; ++i) x[i] = y[i] = 0;
+            if (step <= 0 && br && (step < 0) == own_step) {
+                load_words<N>(x, beta + (int64_t)(a.rnd - 1) * N);
+                load_words<N>(y, rs + (int64_t)(a.rnd - 1) * N);
+            } else if (step == 0) {
+                if (lane < a.n_terms * g) {
+                    const int t = base + lane % g;
+                    const uint32_t* sk = sums + ((int64_t)(lane / g) * a.n_pts + t) * N;
+                    load_words<N>(x, sk);
+                    for (int d = 1; d < a.n_blocks; ++d) {
+                        load_words<N>(u, sk + d * block_words);
+                        add_mod<N>(x, x, u, f);
+                    }
+                    load_words<N>(y, coeffs + (int64_t)(lane / g) * N);
                 }
-                load_words<N>(x, coeffs + (int64_t)k * N);
-                mont_mul<N>(res, res, x, f);
-                add_mod<N>(acc, acc, res, f);
+            } else if (step == 1) {
+                if (lane < g) {
+                    load_words<N>(x, acc);
+                    add_small_multiple<N>(y, c0, dc, base + lane, f);
+                } else if (lane == ZT_FS_RATCHET_LANE) {
+                    load_words<N>(x, p0);
+                    load_words<N>(y, e_s);
+                }
+            } else {
+                load_words<N>(x, acc);
+                load_words<N>(y, pref_s);
             }
-            if (beta != nullptr) {  // times pref · ((1−β_j)(1−t) + β_j·t)
-                uint32_t b[N], tm[N], c[N], p[N];
-                load_words<N>(b, beta + (int64_t)a.rnd * N);
-                small_to_mont<N>(tm, (uint32_t)t, r2, f);
-                eq_factor<N>(c, b, tm, one, f);
-#pragma unroll
-                for (int i = 0; i < N; ++i) p[i] = pref_s[i];
-                mont_mul<N>(c, p, c, f);
-                mont_mul<N>(acc, c, acc, f);
+            mont_mul<N>(u, x, y, f);
+            if (step <= 0 && br && (step < 0) == own_step) {
+                // eq(b, r) = (1 − b)(1 − r) + b·r = 1 − b − r + 2·b·r
+                uint32_t e[N];
+                add_mod<N>(e, u, u, f);
+                add_mod<N>(e, e, one, f);
+                sub_mod<N>(e, e, x, f);
+                sub_mod<N>(e, e, y, f);
+                store_words<N>(e_s, e);
             }
-            store_words<N>(ev + (int64_t)t * N, acc);
-            put_field_frame(msg + len + tid * FRAME, f.q, acc, N);
+            if (step == 0) {
+                if (lane < a.n_terms * g) store_words<N>(prod_s[lane], u);
+                __syncwarp();
+                load_words<N>(acc, prod_s[lane < g ? lane : 0]);
+                for (int t = 1; t < a.n_terms; ++t) {
+                    load_words<N>(u, prod_s[t * g + (lane < g ? lane : 0)]);
+                    add_mod<N>(acc, acc, u, f);
+                }
+            } else if (step == 1) {
+                if (first && lane == ZT_FS_RATCHET_LANE) {
+                    if (!ratchet) load_words<N>(u, p0);
+                    store_words<N>(pref_s, u);
+                    if (ratchet) store_words<N>(pref, u);
+                }
+                load_words<N>(acc, u);
+                __syncwarp();
+            } else if (step == 2) {
+                load_words<N>(acc, u);
+            }
         }
-        __syncthreads();
-        if (tid == 0) {
-            const int n = a.n_pts - base < ZT_FS_BLOCK ? a.n_pts - base : ZT_FS_BLOCK;
-            len_s = keccak_absorb_blocks(s, msg, len + n * FRAME);
+        if (lane < g) {
+            store_words<N>(ev + (int64_t)(base + lane) * N, acc);
+            store_words<N>(val_s[lane], acc);
         }
-        __syncthreads();
+        __syncwarp();
+        for (int j = lane; j < g * FRAME; j += ZT_FS_BLOCK)
+            msg[len + j] = frame_byte(j % FRAME, q_s, val_s[j / FRAME], N);
+        len = keccak_absorb_warp(lo, hi, msg, len + g * FRAME, k, lane);
     }
-    if (tid != 0) return;
 
-    uint8_t d[32];
-    int len = sponge_squeeze(s, msg, len_s, d);
-    uint32_t r[N];
-    challenge_value(r, d, N, a.qbits);
+    len = keccak_squeeze_warp(lo, hi, msg, len, k, lane);
+    uint32_t r[N], r2[N];
+    challenge_value<N>(r, msg + len - 33, a.qbits);  // every lane: the same r
+    load_words<N>(r2, a.r2);
     mont_mul<N>(r, r, r2, f);
-    len = keccak_absorb_blocks(s, msg, len + put_field_frame(msg + len, f.q, r, N));
-    store_words<N>(rs + (int64_t)a.rnd * N, r);
-    sponge_store(state, s, msg, len);
+    if (lane == 0) store_words<N>(val_s[ZT_FS_BLOCK], r);
+    __syncwarp();
+    for (int j = lane; j < FRAME; j += ZT_FS_BLOCK)
+        msg[len + j] = frame_byte(j, q_s, val_s[ZT_FS_BLOCK], N);
+    len = keccak_absorb_warp(lo, hi, msg, len + FRAME, k, lane);
+    if (lane == 0) store_words<N>(rs + (int64_t)a.rnd * N, r);
+    sponge_store_warp(state, lo, hi, msg, len, lane);
 }
 
 // One round: `state` the sponge's ZT_KECCAK_STATE_WORDS words at fill level
 // `pos`; `sums` (n_blocks, n_terms, n_pts, N); `coeffs` (n_terms, N);
 // `beta` (≥ rnd + 1 rows of N) and `pref` (N) for Gruen, both null
-// otherwise; `evals` (≥ rnd + 1, n_pts, N) and `rs` (≥ rnd + 1, N), whose
-// row rnd this round writes (rs's row rnd − 1 is read for Gruen).
+// otherwise; at most 32 terms (the round kernels' most);
+// `evals` (≥ rnd + 1, n_pts, N) and `rs` (≥ rnd + 1, N), whose row rnd this
+// round writes (rs's row rnd − 1 is read for Gruen); r2 and one are R² and
+// 1̂ = R mod q.
 extern "C" int zt_fs_round(void* state, int pos, const void* sums, int n_blocks, int n_terms,
                            int n_pts, const void* coeffs, const void* beta, void* pref, int rnd,
                            void* evals, void* rs, int n32, const uint32_t* q, uint32_t qinv,
-                           const uint32_t* r2, int qbits, void* stream) {
+                           const uint32_t* r2, const uint32_t* one, int qbits, void* stream) {
     if (pos < 0 || pos >= ZT_KECCAK_RATE || n_blocks < 1 || n_terms < 1 || n_pts < 1 || rnd < 0 ||
-        (beta == nullptr) != (pref == nullptr) || qbits < 2 || qbits > 32 * n32)
+        (beta == nullptr) != (pref == nullptr) || n_terms > ZT_FS_BLOCK || qbits < 2 || qbits > 32 * n32)
         return (int)cudaErrorInvalidValue;
     FsArgs a{};
     a.f = make_params(q, n32, qinv);
-    for (int i = 0; i < n32 && i < ZT_MAX_WORDS; ++i) a.r2[i] = r2[i];
+    for (int i = 0; i < n32 && i < ZT_MAX_WORDS; ++i) {
+        a.r2[i] = r2[i];
+        a.one[i] = one[i];
+    }
     a.qbits = qbits;
     a.n_blocks = n_blocks;
     a.n_terms = n_terms;

@@ -38,7 +38,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-FIELD_SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu", "fs.cu")
+FIELD_SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu", "fs.cu", "eq.cu")
 SOURCES = FIELD_SOURCES + ("blake3.cu",)
 HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh", "round_sums.cuh", "keccak.cuh")
 # the word counts the kernels take: n32 = 2·n64 for n64 = 1..8 (64 to 512 bits)
@@ -46,7 +46,7 @@ KERNEL_WORDS = tuple(range(2, 17, 2))
 
 LAUNCHES = {"mont_mul": 0, "fold": 0, "round_eval": 0, "round_eval_gruen": 0,
             "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0,
-            "blake3_leaves": 0, "blake3_merge": 0, "eq_level": 0}
+            "blake3_leaves": 0, "blake3_merge": 0, "eq_table": 0}
 # the target of csrc/blake3.cu, beside the field widths' targets (their n32)
 BLAKE3 = "blake3"
 # target -> {"seconds", "path", "cached", "ptxas"}
@@ -162,8 +162,8 @@ _FIELD_API = {
                               _P],
     "zt_fold_round_eval": [_P, _P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                            _U32, _P],
-    "zt_fs_round": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _U32, _P, _I, _P],
-    "zt_eq_level": [_P, _P, _P, _I64, _I, _P, _U32, _P],
+    "zt_fs_round": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _U32, _P, _P, _I, _P],
+    "zt_eq_table": [_P, _P, _I, _I, _I, _I, _P, _U32, _P, _P],
 }
 _BLAKE3_API = {
     "zt_blake3_leaves": [_P, _P, _I64, _I, _I, _I, _P],
@@ -238,6 +238,12 @@ def modulus_words(ctx) -> np.ndarray:
 def r2_words(ctx) -> np.ndarray:
     """``host_words`` of a field's R² mod q (Montgomery's conversion factor)."""
     return host_words(ctx.r2)
+
+
+@functools.lru_cache(maxsize=32)
+def one_words(ctx) -> np.ndarray:
+    """``host_words`` of a field's 1̂ = R mod q (one in Montgomery form)."""
+    return host_words(ctx.one)
 
 
 def require_field_tensor(name: str, x: torch.Tensor, n32: int, ndim: int) -> None:

@@ -3,7 +3,7 @@
 A table is a (B, n32) int32 tensor of Montgomery residues, B = 2^num_vars,
 with the first variable as the fastest index bit (entries 2i and 2i+1 pair
 up), as in ``zinc_tpu/poly/device.py``.  Large products go through the K1
-wrapper and eq tables through the eq-level wrapper, so they run CUDA
+wrapper and eq tables through the eq-table wrapper, so they run CUDA
 kernels on a CUDA tensor.
 """
 
@@ -15,7 +15,8 @@ import torch
 from ..fields.config import FieldConfig, Fp
 from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField, device_field
-from ..ops.field_kernels import eq_level, eq_level_plain, mont_mul
+# eq_levels_plain is re-exported: the plain levels the eq kernel is held to
+from ..ops.field_kernels import eq_levels_plain, eq_table, mont_mul  # noqa: F401
 
 
 def fps_to_limbs(fes: list[Fp], cfg: FieldConfig) -> np.ndarray:
@@ -61,32 +62,18 @@ def evaluate_mle_device(cfg: FieldConfig, table: torch.Tensor, point: list[Fp]) 
     return limbs_to_fp(table[0], cfg)
 
 
-def _eq_levels(ctx: DeviceField, r: torch.Tensor, level) -> list[torch.Tensor]:
-    s = r.shape[0]
-    buf = fm.narrow(ctx.const("one", r.device))[None, :]  # cached on the device: no host copy
-    levels = [buf]
-    for j in range(s - 1, -1, -1):
-        buf = level(ctx, buf, r[j])
-        levels.append(buf)
-    return levels[::-1]
-
-
 def eq_levels(ctx: DeviceField, r: torch.Tensor) -> list[torch.Tensor]:
     """All levels of the eq recurrence for r (s, n32) on its device: element
     k is the eq table of r[k:] (2^(s−k) entries, bit j ↔ r[k+j]); element s
-    is [1̂].  One ``eq_level`` call a variable: a launch on a CUDA tensor."""
-    return _eq_levels(ctx, r, eq_level)
-
-
-def eq_levels_plain(ctx: DeviceField, r: torch.Tensor) -> list[torch.Tensor]:
-    """The plain PyTorch version of :func:`eq_levels` (any device), one
-    ``eq_level_plain`` a variable: what the kernel is held against on the
-    card."""
-    return _eq_levels(ctx, r, eq_level_plain)
+    is [1̂].  The levels are views of one ``eq_table`` buffer, level 0 first:
+    one launch on a CUDA tensor."""
+    s = r.shape[0]
+    buf = eq_table(ctx, r)
+    return [buf[(2 << s) - (2 << (s - k)) : (2 << s) - (1 << (s - k))] for k in range(s + 1)]
 
 
 def _eq_table_device(ctx: DeviceField, r: torch.Tensor) -> torch.Tensor:
-    return eq_levels(ctx, r)[0]
+    return eq_table(ctx, r, all_levels=False)
 
 
 def build_eq_table_device(cfg: FieldConfig, r: list[Fp], device) -> torch.Tensor:

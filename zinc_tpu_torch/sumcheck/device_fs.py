@@ -49,6 +49,9 @@ from ..transcript import KeccakTranscript
 from .executor import HOST_TAIL, SUMCHECKS, DeviceSumcheckExecutor, make_executor
 from .prover import _absorb_nvars_degree, _fold, _round_evals
 
+FS_MAX_TERMS = 32  # terms of a round's combination: a lane each in fs.cu (the round kernels' most)
+
+
 def round_absorb_bytes(cfg: FieldConfig, degree: int) -> int:
     """Bytes a round absorbs: d+1 evaluations and r, each a frame of
     2·nbytes + 4 bytes (``transcript.py:absorb_field``), and the 34-byte
@@ -153,6 +156,8 @@ def _check_fs(ctx, state, pos, sums, coeffs, evals, rs, rnd, beta, pref) -> None
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor on {dev}")
     n_pts = sums.shape[2]
+    if not 1 <= sums.shape[1] <= FS_MAX_TERMS:
+        raise ValueError(f"sums: {sums.shape[1]} terms, outside 1..{FS_MAX_TERMS}")
     if coeffs.shape[0] != sums.shape[1] or evals.shape[1] != n_pts:
         raise ValueError(f"sums {tuple(sums.shape)}, coeffs {tuple(coeffs.shape)} and evals "
                          f"{tuple(evals.shape)} disagree")
@@ -187,8 +192,8 @@ def fs_round(ctx: DeviceField, state: torch.Tensor, pos: int, sums: torch.Tensor
             state.data_ptr(), pos, sums.data_ptr(), d, n_terms, n_pts, coeffs.data_ptr(),
             None if beta is None else beta.data_ptr(), None if pref is None else pref.data_ptr(),
             rnd, evals.data_ptr(), rs.data_ptr(), n, _cuda.modulus_words(ctx).ctypes.data,
-            ctx.nprime32, _cuda.r2_words(ctx).ctypes.data, ctx.modulus.bit_length(),
-            _cuda.stream_ptr(state.device),
+            ctx.nprime32, _cuda.r2_words(ctx).ctypes.data, _cuda.one_words(ctx).ctypes.data,
+            ctx.modulus.bit_length(), _cuda.stream_ptr(state.device),
         )
     _cuda.check(rc, "fs_round")
     _cuda.LAUNCHES["fs_round"] += 1
