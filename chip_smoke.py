@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    in the SASS of mont_mul_kernel (one product), of the generic kernels,
    of eq_table_kernel and of blake3_leaves_kernel (its largest block: a
    leaf's compression), whole and in their largest basic blocks (a pass's
-   products);
+   products), and how many clusters of 8 and of 16 leaves blocks the card
+   holds at once;
 1. each CUDA kernel against its plain PyTorch version at the shapes the
    paths below give it (2^20 tables, path B's last fold at 7 × 128) at
    n64 = 4 and n64 = 3: exactly equal (every value is an integer residue),
@@ -29,7 +30,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    level 0 alone) at 8, 6 and 16 words and of 2^10 and 2^11 entries (one
    block, two blocks) at 8 words, and the BLAKE3 Merkle tree of the 2^20
    commit (1024 rows of 2048 codewords of 8 words in int64 lanes): the
-   leaves launch, the merge launch and the whole tree;
+   leaves launch with its cluster tail (the whole tree, one launch), the
+   leaves launch without it, the merge launch of a row deeper than a
+   cluster (64 rows of 2^14 codewords) and of 9 levels, and the whole tree;
 1b. fs_round (the device-resident Fiat-Shamir round, csrc/fs.cu) against
    its plain version, equal in every word it writes, at the shapes the
    paths give it (bench_kernels.fs_cases: the R1CS sumchecks on one block
@@ -166,8 +169,9 @@ KERNELS = {
 }
 # the kernels each path must launch (and the dummy R1CS none of the generic tier),
 # on one device, on a mesh and on every rank of a mesh over processes: every
-# prove builds eq tables and commits; a commit whose rows are deeper than a
-# leaves launch merges also launches blake3_merge (with_merges)
+# prove builds eq tables and commits; blake3_merge launches only where the
+# commit's rows are deeper than a leaves launch merges or are split over
+# devices (tree_kernels)
 EQ_TREE_KERNELS = ("eq_table", "blake3_leaves")
 R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round") + EQ_TREE_KERNELS
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
@@ -193,12 +197,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def with_merges(kernels: tuple, log_n: int) -> tuple:
-    """``kernels`` and, where the commit of a 2^log_n CCS has rows of more
-    codewords (2^(log_n/2 + 1)) than a leaves launch merges up, blake3_merge."""
-    from zinc_tpu_torch.ops.blake3 import LEAF_LEVELS
+def commit_merges(log_n: int, columns: int = 1) -> int:
+    """blake3_merge launches of one row block's commit of a 2^log_n CCS, its
+    rows of 2^(log_n/2 + 1) codewords split over ``columns`` devices: each
+    column block's tree, then the merge of their roots
+    (ops/blake3.tree_plan, merge_plan)."""
+    from zinc_tpu_torch.ops.blake3 import merge_plan, tree_plan
 
-    return kernels + (("blake3_merge",) if log_n // 2 + 1 > LEAF_LEVELS else ())
+    n = 1 << (log_n // 2 + 1)
+    return columns * len(tree_plan(n // columns)[1]) + len(merge_plan(columns.bit_length() - 1))
+
+
+def tree_kernels(kernels: tuple, must_not: tuple, log_n: int, columns: int = 1) -> tuple:
+    """(must, must_not) of a run: blake3_merge joins ``kernels`` where the
+    commit merges (commit_merges) and ``must_not`` where the leaves launch's
+    cluster tail takes the whole row."""
+    merge = ("blake3_merge",)
+    if commit_merges(log_n, columns):
+        return kernels + merge, must_not
+    return kernels, must_not + merge
 
 
 def setup(n: int, seed: int, n64: int = 4):
@@ -245,6 +262,7 @@ def phase0() -> dict:
 
     from zinc_tpu_torch.benches.bench_kernels import card, smi_row
     from zinc_tpu_torch.ops import _cuda
+    from zinc_tpu_torch.ops.blake3 import max_active_clusters
 
     log(smi_row("cuda:0", "name,power.limit"))
     info = card()
@@ -260,6 +278,8 @@ def phase0() -> dict:
             log(f"[ptxas] {line}")
     for line in sass_mix(_cuda.BUILD[8]["path"]) + sass_mix(_cuda.BUILD[_cuda.BLAKE3]["path"]):
         log(f"[sass] {line}")
+    log("[cluster] blake3_leaves_cluster_kernel: cudaOccupancyMaxActiveClusters "
+        + ", ".join(f"{1 << c} blocks a cluster: {max_active_clusters(c)}" for c in (3, 4)))
     from zinc_tpu_torch.sumcheck.kernels import GENERIC_LIMITS
 
     info["per_product"] = product_instructions(_cuda.BUILD[8]["path"], GENERIC_LIMITS["ZT_GEN_PASS"])
@@ -268,7 +288,8 @@ def phase0() -> dict:
     return info
 
 
-SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel", "eq_table_kernel", "blake3_leaves_kernel")
+SASS_KERNELS = ("mont_mul_kernel", "generic_round_kernel", "eq_table_kernel",
+                "blake3_leaves_kernel", "blake3_leaves_cluster_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -878,8 +899,8 @@ def _pinned(label: str, digest: str, want: str) -> None:
 
 def phase3(log_n: int) -> dict:
     ccs, statement, wit, _, _ = setup(1 << log_n, 5)
-    res = prove_verify_large(f"2^{log_n}", (ccs, statement, wit), with_merges(R1CS_KERNELS, log_n),
-                             GENERIC_KERNELS)
+    res = prove_verify_large(f"2^{log_n}", (ccs, statement, wit),
+                             *tree_kernels(R1CS_KERNELS, GENERIC_KERNELS, log_n))
     if log_n == 20:
         _pinned(f"2^{log_n}", res["sha256"], R1CS_SHA256_2P20)
     return res
@@ -901,7 +922,7 @@ def phase5(log_n: int) -> dict:
         raise AssertionError(f"path A 2^10 proof hashes to {digest}, not {PATH_A_SHA256_2P10}")
     check_launches(launches, PATH_A_KERNELS, ("round_eval_gruen",), "path A 2^10")
     res = prove_verify_large(f"path A 2^{log_n}", degree4_fixture(1 << log_n, 5),
-                             with_merges(PATH_A_KERNELS, log_n), ("round_eval_gruen",))
+                             *tree_kernels(PATH_A_KERNELS, ("round_eval_gruen",), log_n))
     if log_n == 20:
         _pinned(f"path A 2^{log_n}", res["sha256"], PATH_A_SHA256_2P20)
     return res["launches"]
@@ -972,8 +993,8 @@ def phase7(log_n: int, single: dict, card="cuda:0") -> dict:
     ccs, statement, wit, _, _ = setup(1 << log_n, 5)
     mesh = Mesh([card] * 4)
     label = f"mesh 4 x {card} 2^{log_n}"
-    a = prove_verify_large(label, (ccs, statement, wit), with_merges(R1CS_KERNELS, log_n),
-                           GENERIC_KERNELS, mesh=mesh)
+    a = prove_verify_large(label, (ccs, statement, wit),
+                           *tree_kernels(R1CS_KERNELS, GENERIC_KERNELS, log_n), mesh=mesh)
     check_sharded(label, mesh, log_n, "4 row blocks")
     if a["sha256"] != single["sha256"]:
         raise AssertionError(f"{label}: proof differs from the single-device proof")
@@ -1013,7 +1034,7 @@ def mesh_of_cards(log_n: int, single: dict, fixture) -> None:
         return
     cards = local_mesh()
     label = f"mesh of {n_cards} cards 2^{log_n}"
-    d = prove_verify_large(label, fixture, with_merges(R1CS_KERNELS, log_n), GENERIC_KERNELS,
+    d = prove_verify_large(label, fixture, *tree_kernels(R1CS_KERNELS, GENERIC_KERNELS, log_n),
                            mesh=cards)
     even = n_cards & (n_cards - 1) == 0  # splits the rows and the hypercube
     check_sharded(label, cards, log_n, f"{n_cards} row blocks" if even else "one device")
@@ -1259,15 +1280,17 @@ def run_ranks(label: str, log_n: int, devices: str, backend: str | None, world: 
     return results
 
 
-def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commit: str) -> None:
+def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commit: str,
+                columns: int) -> None:
     """Every rank's proof hashes to ``single``'s sha256 and every rank's
     transcript ends in the same state, rank 0 verified the proof and saw
     the tamper rejected, both sumchecks ran the device-FS driver sharded
     down to HOST_TAIL entries a shard, with one fetch each and (where the
     group stages through the host) a staged copy for each sharded round
-    and the hand-over, the commit ran in ``commit``, and (on the card)
-    every kernel of the R1CS path launched on every rank, fs_round once a
-    device round."""
+    and the hand-over, the commit ran in ``commit`` (its rows split over
+    ``columns`` devices of a rank), and (on the card) every kernel of the
+    R1CS path launched on every rank, fs_round once a device round and
+    blake3_merge as commit_merges plans it."""
     from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
 
     shards = results[0]["shards"]
@@ -1297,7 +1320,11 @@ def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commi
         if not res["staged"] and res["staged_copies"]:
             raise AssertionError(f"{who}: {res['staged_copies']} gathers went through the host")
         if res["on_card"]:
-            check_launches(res["launches"], with_merges(R1CS_KERNELS, log_n), GENERIC_KERNELS, who)
+            check_launches(res["launches"], *tree_kernels(R1CS_KERNELS, GENERIC_KERNELS, log_n,
+                                                          columns), who)
+            if res["launches"]["blake3_merge"] != commit_merges(log_n, columns):
+                raise AssertionError(f"{who}: blake3_merge launched {res['launches']['blake3_merge']} "
+                                     f"times, not {commit_merges(log_n, columns)}")
             if res["launches"]["fs_round"] != sum(r["device_rounds"] for r in recs):
                 raise AssertionError(f"{who}: fs_round launched {res['launches']['fs_round']} "
                                      f"times for {[r['device_rounds'] for r in recs]} rounds")
@@ -1318,7 +1345,7 @@ def phase9(single: dict, log_n: int = 20, devices: str = "cuda:0,cuda:0") -> lis
     and the enqueue loops clean under sync debug "error".  Returns each
     rank's launches."""
     results = run_ranks("2 processes", log_n, devices, "gloo")
-    check_ranks("2 processes", results, single, log_n, "2 row blocks x 2 column blocks")
+    check_ranks("2 processes", results, single, log_n, "2 row blocks x 2 column blocks", 2)
     return [r["launches"] for r in results] + nccl_ranks(single, log_n)
 
 
@@ -1333,7 +1360,7 @@ def nccl_ranks(single: dict, log_n: int) -> list[dict]:
             f"per card needs two cards or more")
         return []
     results = run_ranks("2 processes, NCCL", log_n, "own", "nccl")
-    check_ranks("2 processes, NCCL", results, single, log_n, "2 row blocks x 1 column blocks")
+    check_ranks("2 processes, NCCL", results, single, log_n, "2 row blocks x 1 column blocks", 1)
     log("[2 processes, NCCL] no byte of a round's sums reached the host before a sumcheck's "
         "one fetch, and each rank's first collective (NCCL's communicator started by "
         "init_process_group) ran inside a device-FS enqueue loop under sync debug \"error\"")

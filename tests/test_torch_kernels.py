@@ -647,9 +647,14 @@ def _codewords(shape, dtype, seed, device):
     (1, 1, 1, torch.int32),  # a row of one leaf: no merge
     (3, 64, 4, torch.int32),  # fewer leaves than a block
     (3, 128, 2, torch.int64),  # a half-filled second block
-    (2, 4096, 4, torch.int32),  # a leaves launch and a merge launch
-    (4, 2048, 8, torch.int64),  # 64-byte leaves
-    (1, 1 << 18, 1, torch.int32),  # two merge launches
+    (2, 256, 1, torch.int64),  # a row of one block: no cluster
+    (5, 512, 2, torch.int32),  # clusters of 2
+    (3, 1024, 4, torch.int64),  # clusters of 4
+    (4, 2048, 8, torch.int64),  # a row of one cluster of 8, 64-byte leaves
+    (1024, 2048, 4, torch.int64),  # the 2^20 commit (the main path)
+    (4096, 2048, 1, torch.int32),  # more clusters than the card holds at once
+    (2, 4096, 4, torch.int32),  # a cluster and a merge launch
+    (1, 1 << 18, 1, torch.int32),  # a cluster and a merge launch of 7 levels
 ])
 def test_merkle_kernels_match_plain_on_cuda(cuda_device, rows, n, k_words, dtype):
     from zinc_tpu_torch.ops import blake3 as b3
@@ -658,12 +663,30 @@ def test_merkle_kernels_match_plain_on_cuda(cuda_device, rows, n, k_words, dtype
     depth = n.bit_length() - 1
     _cuda.reset_launches()
     layers = b3.merkle_tree_device(enc, k_words)
-    merges = -(-(depth - min(depth, b3.LEAF_LEVELS)) // b3.MERGE_LEVELS)
+    merges = len(b3.tree_plan(n)[1])
     assert (_cuda.LAUNCHES["blake3_leaves"], _cuda.LAUNCHES["blake3_merge"]) == (1, merges)
     want = b3.hash_leaves_plain(enc, k_words, 0)
     want += b3.merge_levels_plain(want[0], depth)
     assert len(layers) == depth + 1
     assert all(torch.equal(g, w) for g, w in zip(layers, want))
+
+
+@pytest.mark.cuda
+def test_leaves_cluster_launch_limits_on_cuda(cuda_device):
+    """The card holds clusters of 2^LOG_CLUSTER leaves blocks, and the C entry
+    refuses more levels than a cluster covers (cudaErrorInvalidValue), as
+    the wrapper does before it."""
+    from zinc_tpu_torch.ops import blake3 as b3
+
+    assert b3.max_active_clusters(b3.LOG_CLUSTER, cuda_device) >= 1
+    enc = _codewords((1, 1 << (b3.LEAF_LEVELS + 1), 2), torch.int32, 90, cuda_device)
+    buf = torch.empty(8 * 4 * enc.shape[1], dtype=torch.int64, device=cuda_device)
+    with _cuda.on_device(enc):
+        rc = _cuda.blake3_lib().zt_blake3_leaves(buf.data_ptr(), enc.data_ptr(), enc.shape[1], 2, 1,
+                                                 b3.LEAF_LEVELS + 1, _cuda.stream_ptr(enc.device))
+    assert rc == 1  # cudaErrorInvalidValue
+    with pytest.raises(ValueError):
+        b3.hash_leaves(enc, 1, b3.LEAF_LEVELS + 1)
 
 
 @pytest.mark.cuda
@@ -674,7 +697,7 @@ def test_merge_levels_match_plain_on_cuda(cuda_device, rows, n, count):
     level = _codewords((rows, n, 8), torch.int64, 60 + count, cuda_device)
     _cuda.reset_launches()
     got = b3.merge_levels(level, count)
-    one = b3.merge_level(level[:, :, :].transpose(0, 1).contiguous().transpose(0, 1))
+    one = b3.merge_levels(level.transpose(0, 1).contiguous().transpose(0, 1), 1)[0]
     assert _cuda.LAUNCHES["blake3_merge"] == 2
     want = b3.merge_levels_plain(level, count)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -731,7 +754,7 @@ def test_merkle_and_eq_wrappers_refuse_on_cuda(cuda_device, ctx):
     with pytest.raises(ValueError):
         b3.merkle_tree_device(enc[:, :6], 2)
     with pytest.raises(TypeError):
-        b3.merge_level(enc.reshape(2, 4, 8))  # int32 digests
+        b3.merge_levels(enc.reshape(2, 4, 8), 1)  # int32 digests
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The port's BLAKE3 Merkle trees (``zinc_tpu_torch/ops/blake3.py``) against
 the JAX package's ``zinc_tpu/ops/blake3_kernel.py`` on the CPU, compared as
 the digest bytes of every layer: every leaf length from 8 to 64 bytes,
-words with the sign bit set in int32 and int64 lanes, and rows deep enough
-that the tree takes a leaves launch and a merge launch on the card.  The
-wrappers' refusals and their CPU rule (the plain version, no build, no
+words with the sign bit set in int32 and int64 lanes, rows that span a
+cluster of blocks, and a row deep enough that the tree takes a leaves
+launch and a merge launch on the card (split as ``tree_plan`` plans it).
+The wrappers' refusals and their CPU rule (the plain version, no build, no
 launch) are held here too; the kernels themselves are held against these
 plain versions on the card in ``tests/test_torch_kernels.py``."""
 
@@ -20,7 +21,7 @@ from zinc_tpu_torch.ops import _cuda
 from zinc_tpu_torch.ops import blake3 as b3
 
 # (rows, codewords a row, k_words): k_words 1, 2, 4 and 8 give 8-, 16-, 32-
-# and 64-byte leaves; 1024 codewords are deeper than one leaves launch
+# and 64-byte leaves; 1024 codewords span a cluster of 4 blocks on the card
 SHAPES = [(1, 2, 1), (3, 64, 1), (2, 8, 2), (3, 32, 4), (1, 64, 4), (2, 16, 8), (1, 1024, 1)]
 
 
@@ -72,8 +73,55 @@ def test_merge_levels_match_merge_pairs(rows, n, count):
     for i in range(count):
         level = j_merge_pairs(level.reshape(-1, 2, 8)).reshape(rows, -1, 8)
         assert _bytes(got[i].numpy()) == _bytes(level)
-    one = b3.merge_level(torch.from_numpy(digests.astype(np.int64)))
+    one = b3.merge_levels(torch.from_numpy(digests.astype(np.int64)), 1)[0]
     assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("log_n", range(21))
+def test_tree_plan_covers_the_row_in_launches_the_kernels_take(log_n):
+    """The plan's levels sum to the row's depth; the leaves launch takes
+    every level up to LEAF_LEVELS = LOG_BLOCK + LOG_CLUSTER and each merge
+    launch at most MERGE_LEVELS, every launch but the last a full one."""
+    leaf, merges = b3.tree_plan(1 << log_n)
+    assert leaf + sum(merges) == log_n
+    assert leaf == min(log_n, b3.LOG_BLOCK + b3.LOG_CLUSTER) == min(log_n, b3.LEAF_LEVELS)
+    assert all(1 <= m <= b3.MERGE_LEVELS for m in merges)
+    assert all(m == b3.MERGE_LEVELS for m in merges[:-1])
+    assert len(merges) == -(-(log_n - leaf) // b3.MERGE_LEVELS)
+    full, rest = divmod(log_n, b3.MERGE_LEVELS)
+    assert b3.merge_plan(log_n) == [b3.MERGE_LEVELS] * full + [rest] * (rest > 0)
+
+
+def test_plan_split_at_2p12_matches_jax():
+    """A row of 2^12 leaves (k_words 1) is deeper than a cluster: the plain
+    leaves layer and levels the leaves launch takes, then the plain merge of
+    the levels left, equal the JAX package's merkle_tree_device byte for
+    byte."""
+    n, seed = 1 << 12, 4096
+    words = torch.from_numpy(_words(1, n, 1, seed).view(np.int32))
+    leaf, merges = b3.tree_plan(n)
+    assert (leaf, merges) == (b3.LEAF_LEVELS, [12 - b3.LEAF_LEVELS])
+    layers = b3.hash_leaves_plain(words, 1, leaf)
+    for count in merges:
+        layers += b3.merge_levels_plain(layers[-1], count)
+    assert [_bytes(x.numpy()) for x in layers] == list(_jax_layers(1, n, 1, seed))
+
+
+@pytest.mark.parametrize("log_n,columns,merges", [
+    (20, 1, 0),  # the 2^20 commit: rows of 2^11 codewords, one cluster each
+    (20, 2, 1),  # two column blocks: their roots merged in one launch
+    (20, 4, 1),
+    (24, 1, 1),  # rows of 2^13 codewords: a cluster and a merge launch
+    (10, 1, 0),
+])
+def test_chip_smoke_counts_merge_launches_from_the_plan(log_n, columns, merges):
+    """chip_smoke.py's launch checks read tree_plan: a commit whose rows a
+    cluster covers must launch no blake3_merge, and one that merges must."""
+    import chip_smoke
+
+    assert chip_smoke.commit_merges(log_n, columns) == merges
+    must, must_not = chip_smoke.tree_kernels(("blake3_leaves",), (), log_n, columns)
+    assert ("blake3_merge" in must, "blake3_merge" in must_not) == (merges > 0, merges == 0)
 
 
 def test_the_split_into_launches_is_the_plain_tree():
@@ -92,7 +140,7 @@ def test_cpu_tensors_take_the_plain_versions():
     _cuda.reset_launches()
     layers = b3.merkle_tree_device(words, 4)
     assert all(torch.equal(a, b) for a, b in zip(layers, b3.hash_leaves_plain(words, 4, 8)))
-    assert torch.equal(b3.merge_level(layers[0]), layers[1])
+    assert torch.equal(b3.merge_levels(layers[0], 1)[0], layers[1])
     assert all(v == 0 for v in _cuda.LAUNCHES.values())
     assert _cuda._libs == {}  # nothing was built for CPU tensors
 
@@ -102,8 +150,10 @@ def test_blake3_library_is_built_with_the_wrappers_block():
     plan their launches with; no field width's library compiles it."""
     assert _cuda._sources(_cuda.BLAKE3) == ("blake3.cu",)
     assert all("blake3.cu" not in _cuda._sources(n) for n in _cuda.KERNEL_WORDS)
-    assert _cuda._defines(_cuda.BLAKE3) == [f"-DZT_B3_LOG_BLOCK={b3.LOG_BLOCK}"]
-    assert (b3.LEAF_LEVELS, b3.MERGE_LEVELS) == (b3.LOG_BLOCK, b3.LOG_BLOCK + 1)
+    assert _cuda._defines(_cuda.BLAKE3) == [f"-DZT_B3_LOG_BLOCK={b3.LOG_BLOCK}",
+                                            f"-DZT_B3_LOG_CLUSTER={b3.LOG_CLUSTER}"]
+    assert (b3.LEAF_LEVELS, b3.MERGE_LEVELS) == (b3.LOG_BLOCK + b3.LOG_CLUSTER, b3.LOG_BLOCK + 1)
+    assert 1 << b3.LOG_CLUSTER <= 8  # a portable cluster
     assert _cuda._lib_path(_cuda.BLAKE3) != _cuda._lib_path(8)
     assert _cuda._libs == {}  # naming a library builds nothing
 
@@ -122,7 +172,7 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         b3.hash_leaves(words, 2, 4)  # 8 leaves have 3 levels above them
     with pytest.raises(ValueError):
-        b3.hash_leaves(torch.zeros((2, 512, 4), dtype=torch.int32), 2, 9)  # over LEAF_LEVELS
+        b3.hash_leaves(torch.zeros((1, 4096, 4), dtype=torch.int32), 2, 12)  # over LEAF_LEVELS
     with pytest.raises(TypeError):
         b3.merge_levels(level.to(torch.int32), 1)
     with pytest.raises(ValueError):

@@ -84,20 +84,29 @@ MESH_SHAPES = {
 
 
 @pytest.mark.parametrize("name", list(MESH_SHAPES))
-def test_mesh_prove_reproduces_golden_2p10(name):
+def test_mesh_prove_reproduces_golden_2p10(name, monkeypatch):
     """The 2^10 golden proof (the JAX host prover's bytes, which its own
     sharded prove reproduces: tests/test_parallel.py) from 1-D meshes of 2
     to 16 shards and 2-D meshes of 1 × 4 to 4 × 2; each sumcheck ran its
     rounds on the shards down to HOST_TAIL entries a shard (2 rounds each on
     4 shards: blocks of 256 and 128 entries, then the hand-over at 64; none
     where the shards do not divide 2^10), the commit ran in row blocks, or
-    on one device where the rows or the codeword do not split; the verifier
-    accepts."""
+    on one device where the rows or the codeword do not split; a 2-D commit
+    merged each row block's column-block roots in one merge_levels call (one
+    launch on the card); the verifier accepts."""
+    from zinc_tpu_torch.ops import blake3 as b3
+    from zinc_tpu_torch.parallel import zip as pzip
+
+    merges = []
+    monkeypatch.setattr(pzip, "merge_levels",
+                        lambda level, count: merges.append(count) or b3.merge_levels(level, count))
     shape, commit = MESH_SHAPES[name]
     mesh = cpu_mesh(shape[0]) if len(shape) == 1 else cpu_mesh_2d(*shape)
     _, ccs, statement, wit = zt.dummy_ccs_of_size(N, random.Random(SEED), int_bits=62)
     proof, cfg = _prove(ccs, statement, wit, mesh)
     assert zt.serialize_proof(proof, cfg) == GOLDEN.read_bytes()
+    split = len(shape) == 2 and commit != "one device"
+    assert merges == (b3.merge_plan(shape[1].bit_length() - 1) * shape[0] if split else [])
     d = mesh.size
     rounds = 0 if N % d else max(0, N.bit_length() - d.bit_length() - HOST_TAIL.bit_length() + 1)
     assert mesh.stats["sharded_rounds"] == [rounds, rounds]

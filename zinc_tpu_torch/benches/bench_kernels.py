@@ -31,7 +31,8 @@ a permutation, and of the rest of each shape); the host wall of one 2^20
 
 ``--root`` times the kernels of another checkout of the port with the same
 cases (its ``zinc_tpu_torch`` is imported instead of this one's; the cases
-call only wrappers every checkout since the eq kernels has), so that two
+call only wrappers every checkout since the eq kernels has, and the Merkle
+cases follow that checkout's plan of launches: :func:`tree_plan`), so that two
 versions can be compared in one call on one card.  The field is q = 2^255
 + 95 (n64 = 4), and 2^(32·n32 − 1) plus a small offset at the other widths
 (:func:`field_of_words`), the tables random residues from a seed.  Prints
@@ -291,33 +292,55 @@ def eq_cases(ctx, device, log_n: int = 20, seed: int = 25) -> list[dict]:
     ]
 
 
-def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4,
-                 seed: int = 26) -> list[dict]:
+def tree_plan(b3, n: int) -> tuple[int, list[int]]:
+    """``b3.tree_plan(n)`` (``ops/blake3.py``), or for a checkout from before
+    it the plan its ``merkle_tree_device`` followed: the leaves launch's
+    levels, then merge launches of up to ``MERGE_LEVELS`` levels."""
+    if hasattr(b3, "tree_plan"):
+        return b3.tree_plan(n)
+    depth = n.bit_length() - 1
+    leaf = min(b3.LEAF_LEVELS, depth)
+    return leaf, [min(b3.MERGE_LEVELS, depth - i) for i in range(leaf, depth, b3.MERGE_LEVELS)]
+
+
+def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4, seed: int = 26,
+                 deep: tuple[int, int] = (64, 1 << 14)) -> list[dict]:
     """The BLAKE3 kernels at the main path's commit (the 2^20 R1CS: 1024 rows
     of 2048 codewords of 8 canonical u32 words in int64 lanes, as
-    ``zip/device.py:encode_rows`` gives them): the leaves launch (the leaves
-    and 8 levels), the merge launch of the 3 levels left, and a merge launch
-    of 9 levels over the leaves; then the whole tree (both launches).
-    Bytes: the codeword words read once, every digest written once (8 int64
-    lanes a node) and a merge's input level read once.  Instructions: each
-    compression's (``COMPRESS_ALU``, ``COMPRESS_OPS``) and a leaf's byte
-    swaps, one permute a word, counted in both."""
+    ``zip/device.py:encode_rows`` gives them), launched as the checkout's
+    :func:`tree_plan` plans the tree: the leaves launch with every level it
+    merges (the whole tree, where a cluster covers the row), the leaves
+    launch of ``LOG_BLOCK`` levels (no cluster), the merge launch of a row
+    deeper than a cluster (``deep`` = rows, codewords: 64 rows of 2^14,
+    the levels left after its leaves launch), a merge launch of 9 levels
+    over the leaves, and the whole tree.  Bytes: the codeword words read
+    once, every digest written once (8 int64 lanes a node) and a merge's
+    input level read once.  Instructions: each compression's
+    (``COMPRESS_ALU``, ``COMPRESS_OPS``) and a leaf's byte swaps, one
+    permute a word, counted in both."""
     import numpy as np
     import torch
 
     from zinc_tpu_torch.ops import blake3 as b3
 
     rng = np.random.default_rng(seed)
-    enc = torch.from_numpy(rng.integers(0, 1 << 32, size=(rows, n, 2 * k_words),
-                                        dtype=np.int64)).to(device)
+
+    def words(r, m):
+        return torch.from_numpy(rng.integers(0, 1 << 32, size=(r, m, 2 * k_words),
+                                             dtype=np.int64)).to(device)
+
+    enc = words(rows, n)
     leaves = rows * n
     depth = n.bit_length() - 1
-    lv = min(b3.LEAF_LEVELS, depth)
-    top = b3.hash_leaves_plain(enc, k_words, lv)[-1]  # the level the merge launch starts from
+    leaf, merges = tree_plan(b3, n)
     full_tree = b3.hash_leaves_plain(enc, k_words, 0)[0]
+    d_rows, d_n = deep
+    d_leaf, d_merges = tree_plan(b3, d_n)
+    top = b3.hash_leaves_plain(words(d_rows, d_n), k_words, d_leaf)[-1]  # the merge launch's input
+    d_count = d_merges[0]
 
-    def nodes(first, count):  # nodes of levels first+1 .. first+count of the rows
-        return sum(rows * (n >> lvl) for lvl in range(first + 1, first + count + 1))
+    def nodes(r, m, first, count):  # nodes of levels first+1 .. first+count of r rows of m leaves
+        return sum(r * (m >> lvl) for lvl in range(first + 1, first + count + 1))
 
     digest, word_ops = 64, 2 * k_words  # bytes of a node; a leaf's byte swaps
 
@@ -325,29 +348,36 @@ def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4,
         return (compressions * COMPRESS_ALU + leaves * word_ops,
                 compressions * COMPRESS_OPS + leaves * word_ops)
 
-    m_leaf = nodes(0, lv)
-    m_top = nodes(lv, depth - lv)
-    m_wide = nodes(0, b3.MERGE_LEVELS)
+    def leaves_case(lv, label):
+        m = nodes(rows, n, 0, lv)
+        return _case("blake3_leaves", f"{rows} x {n} x {2 * k_words} words (int64), leaves + {lv} "
+                     f"levels{label}",
+                     lambda: b3.hash_leaves(enc, k_words, lv),
+                     lambda: b3.hash_leaves_plain(enc, k_words, lv), 0,
+                     enc.numel() * 8 + (leaves + m) * digest,
+                     int_ops=instructions(leaves + m, leaves))
+
+    m_top = nodes(d_rows, top.shape[1], 0, d_count)
+    m_wide = nodes(rows, n, 0, b3.MERGE_LEVELS)
     return [
-        _case("blake3_leaves", f"{rows} x {n} x {2 * k_words} words (int64), leaves + {lv} levels",
-              lambda: b3.hash_leaves(enc, k_words, lv),
-              lambda: b3.hash_leaves_plain(enc, k_words, lv), 0,
-              enc.numel() * 8 + (leaves + m_leaf) * digest,
-              int_ops=instructions(leaves + m_leaf, leaves)),
-        _case("blake3_merge", f"{rows} x {n >> lv} digests, {depth - lv} levels",
-              lambda: b3.merge_levels(top, depth - lv),
-              lambda: b3.merge_levels_plain(top, depth - lv), 0,
+        leaves_case(leaf, " (the whole tree)" if not merges else ""),
+        leaves_case(b3.LOG_BLOCK, ", no cluster"),
+        _case("blake3_merge", f"{d_rows} x {top.shape[1]} digests, {d_count} levels (rows of "
+              f"{d_n} codewords)",
+              lambda: b3.merge_levels(top, d_count),
+              lambda: b3.merge_levels_plain(top, d_count), 0,
               (top.shape[0] * top.shape[1] + m_top) * digest, launch_bound=True,
               int_ops=instructions(m_top)),
         _case("blake3_merge", f"{rows} x {n} digests, {b3.MERGE_LEVELS} levels",
               lambda: b3.merge_levels(full_tree, b3.MERGE_LEVELS),
               lambda: b3.merge_levels_plain(full_tree, b3.MERGE_LEVELS), 0,
               (leaves + m_wide) * digest, int_ops=instructions(m_wide)),
-        _case("merkle_tree_device", f"{rows} x {n} x {2 * k_words} words (int64), whole tree",
+        _case("merkle_tree_device", f"{rows} x {n} x {2 * k_words} words (int64), whole tree, "
+              f"{1 + len(merges)} launch{'es' if merges else ''}",
               lambda: b3.merkle_tree_device(enc, k_words),
               lambda: b3.hash_leaves_plain(enc, k_words, depth), 0,
-              enc.numel() * 8 + (leaves + nodes(0, depth)) * digest,
-              int_ops=instructions(leaves + nodes(0, depth), leaves)),
+              enc.numel() * 8 + (leaves + nodes(rows, n, 0, depth)) * digest,
+              int_ops=instructions(leaves + nodes(rows, n, 0, depth), leaves)),
     ]
 
 
@@ -524,11 +554,21 @@ def main(argv=None) -> None:
     from zinc_tpu_torch.ops import _cuda
     from zinc_tpu_torch.sumcheck.device_fs import fs_round
 
-    _cuda.build(FS_WORDS)
+    from zinc_tpu_torch.ops import blake3 as b3
+
+    _cuda.build(FS_WORDS + (_cuda.BLAKE3,))
     info = card()
     floor = launch_floor_ms()
     print(json.dumps({"card": info, "root": str(Path(args.root).resolve()),
                       "package": str(Path(zt.__file__).parent), "launch_floor_ms": floor}),
+          flush=True)
+    # the BLAKE3 kernels' registers and spills, and (where the leaves launch
+    # has its cluster tail) the clusters of 8 and 16 blocks the card holds
+    ptxas = [ln.strip() for ln in _cuda.BUILD[_cuda.BLAKE3]["ptxas"].splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    clusters = ({1 << c: b3.max_active_clusters(c) for c in (3, 4)}
+                if hasattr(b3, "max_active_clusters") else None)
+    print(json.dumps({"name": "blake3 build", "ptxas": ptxas, "max_active_clusters": clusters}),
           flush=True)
     ctx = device_field(zt.FieldConfig((1 << 255) + 95, 4))
     todo = [(ctx.n32, c) for c in cases(ctx, "cuda")]

@@ -37,9 +37,12 @@ def main(argv=None) -> None:
     cs.log(f"[walls] root {root}: {Path(cs.__file__).resolve()}")
     bench_zip.main(["bench_zip", "12", "14", "16", "cuda"])
     fixture = cs.setup(1 << 20, 5)[:3]
+    if hasattr(cs, "tree_kernels"):
+        must, must_not = cs.tree_kernels(cs.R1CS_KERNELS, cs.GENERIC_KERNELS, 20)
+    else:  # a checkout from before the leaves launch's cluster tail
+        must, must_not = cs.with_merges(cs.R1CS_KERNELS, 20), cs.GENERIC_KERNELS
     for i in range(2):
-        cs.prove_verify_large(f"walls 2^20 #{i}", fixture, cs.with_merges(cs.R1CS_KERNELS, 20),
-                              cs.GENERIC_KERNELS)
+        cs.prove_verify_large(f"walls 2^20 #{i}", fixture, must, must_not)
     cs.compare_drivers("walls R1CS 2^20", fixture, turns=2)
 
 

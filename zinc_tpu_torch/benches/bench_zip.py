@@ -10,8 +10,8 @@ run once warm and then timed on the host clock (the device synced):
 - ``encode_rows``: the device RAA encode (``zip/device._raa_encode_rows``,
   the permutations uploaded once, as the JAX bench does);
 - ``merkle_root``: the device BLAKE3 trees over those rows
-  (``ops/blake3.merkle_tree_device``: the ``blake3_leaves`` and
-  ``blake3_merge`` kernels on the card);
+  (``ops/blake3.merkle_tree_device``: on the card one ``blake3_leaves``
+  launch, rows of up to 2^11 codewords being one launch);
 - ``commit_no_merkle``: the host PCS's encode-only commit
   (``zip/pcs.commit_no_merkle``);
 - ``commit``, ``open``: the device commit and open

@@ -81,12 +81,13 @@ def _sources(target) -> tuple[str, ...]:
 
 
 def _defines(target) -> list[str]:
-    """A field width's word count, or the BLAKE3 kernels' block, which
-    ``ops/blake3.py`` plans its launches with (``LOG_BLOCK``)."""
+    """A field width's word count, or the BLAKE3 kernels' block and
+    cluster, which ``ops/blake3.py`` plans its launches with (``LOG_BLOCK``,
+    ``LOG_CLUSTER``)."""
     if target == BLAKE3:
-        from .blake3 import LOG_BLOCK
+        from .blake3 import LOG_BLOCK, LOG_CLUSTER
 
-        return [f"-DZT_B3_LOG_BLOCK={LOG_BLOCK}"]
+        return [f"-DZT_B3_LOG_BLOCK={LOG_BLOCK}", f"-DZT_B3_LOG_CLUSTER={LOG_CLUSTER}"]
     return [f"-DZT_WORDS={target}"]
 
 
@@ -168,6 +169,7 @@ _FIELD_API = {
 _BLAKE3_API = {
     "zt_blake3_leaves": [_P, _P, _I64, _I, _I, _I, _P],
     "zt_blake3_merge": [_P, _P, _I64, _I, _P],
+    "zt_blake3_max_clusters": [_I, _P],
 }
 
 

@@ -8,10 +8,12 @@ hashes two 32-byte child digests.  Digests are int64 tensors of u32 words,
 
 On a CUDA tensor the tree is ``csrc/blake3.cu``, one thread a compression,
 built once as its own library (it takes no field): :func:`hash_leaves`
-hashes the leaves and merges up to ``LEAF_LEVELS`` levels in one launch,
-:func:`merge_levels` up to ``MERGE_LEVELS`` a launch, so a row of up to
-2^17 codewords takes two launches.  Both follow from the kernels' block of
-2^``LOG_BLOCK`` threads, which the build passes to the source.  The plain versions
+hashes the leaves and merges up to ``LEAF_LEVELS`` levels in one launch
+(past the kernel's block of 2^``LOG_BLOCK`` threads, across a thread-block
+cluster of up to 2^``LOG_CLUSTER`` blocks), :func:`merge_levels` up to
+``MERGE_LEVELS`` a launch: a row of up to 2^11 codewords (the 2^20
+commit's) takes one launch, of up to 2^20 two (:func:`tree_plan`).  The
+build passes ``LOG_BLOCK`` and ``LOG_CLUSTER`` to the source.  The plain versions
 (:func:`compress_batch` over a level at a time, lanes masked to 32 bits
 after each add and rotate, since torch's CPU uint32 has no add) serve CPU
 tensors and the tests, and are what ``chip_smoke.py`` holds the kernels
@@ -23,6 +25,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..hashing.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
@@ -31,7 +35,9 @@ from . import _cuda
 M32 = 0xFFFFFFFF
 FLAGS = CHUNK_START | CHUNK_END | ROOT  # every node is one single-block chunk
 LOG_BLOCK = 8  # a kernel block is 2^LOG_BLOCK threads (csrc/blake3.cu's ZT_B3_LOG_BLOCK)
-LEAF_LEVELS = LOG_BLOCK  # merges a leaves launch makes in its blocks of 2^LOG_BLOCK leaves
+LOG_CLUSTER = 3  # a leaves launch's cluster is up to 2^LOG_CLUSTER blocks (ZT_B3_LOG_CLUSTER)
+# merges a leaves launch makes: its blocks' subtrees, then their clusters'
+LEAF_LEVELS = LOG_BLOCK + LOG_CLUSTER
 MERGE_LEVELS = LOG_BLOCK + 1  # merges a merge launch makes in its blocks of 2^(LOG_BLOCK+1) nodes
 
 
@@ -192,20 +198,38 @@ def merge_levels(level: torch.Tensor, count: int) -> list[torch.Tensor]:
     return _split(buf, r, sizes)
 
 
+def merge_plan(levels: int) -> list[int]:
+    """The levels of each merge launch that merges ``levels`` levels: as
+    many as a launch takes, the rest in the last."""
+    return [min(MERGE_LEVELS, levels - i) for i in range(0, levels, MERGE_LEVELS)]
+
+
+def tree_plan(n: int) -> tuple[int, list[int]]:
+    """The launches of a tree of rows of ``n`` leaves: (the levels the leaves
+    launch merges, [the levels of each merge launch after it])."""
+    depth = _depth(n, "tree_plan")
+    leaf = min(LEAF_LEVELS, depth)
+    return leaf, merge_plan(depth - leaf)
+
+
 def merkle_tree_device(enc: torch.Tensor, k_words: int) -> list[torch.Tensor]:
     """Full Merkle layers for every row at once.
 
     enc: (R, N, 2·k_words) canonical u32 words (int32 or int64) of the
     codeword elements, N a power of two.  Returns [leaves (R, N, 8),
     (R, N/2, 8), ..., root (R, 1, 8)] int64 digest words."""
-    depth = _depth(enc.shape[1], "merkle_tree_device")
-    layers = hash_leaves(enc, k_words, min(LEAF_LEVELS, depth))
-    while len(layers) <= depth:
-        layers += merge_levels(layers[-1], min(MERGE_LEVELS, depth + 1 - len(layers)))
+    leaf, merges = tree_plan(enc.shape[1])
+    layers = hash_leaves(enc, k_words, leaf)
+    for count in merges:
+        layers += merge_levels(layers[-1], count)
     return layers
 
 
-def merge_level(level: torch.Tensor) -> torch.Tensor:
-    """One Merkle level up: (R, N, 8) digests → (R, N/2, 8), node i the hash
-    of children 2i ‖ 2i+1."""
-    return merge_levels(level, 1)[0]
+def max_active_clusters(log_cluster: int, device="cuda") -> int:
+    """How many clusters of 2^log_cluster leaves-kernel blocks the card holds
+    at once (``cudaOccupancyMaxActiveClusters``, 1 ≤ log_cluster ≤ 4)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        rc = _cuda.blake3_lib().zt_blake3_max_clusters(log_cluster, ctypes.byref(out))
+    _cuda.check(rc, "blake3_max_clusters")
+    return out.value

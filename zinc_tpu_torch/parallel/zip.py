@@ -36,7 +36,7 @@ from ..fields import montgomery as fm
 from ..fields.config import FieldConfig
 from ..fields.integers import cumsum_wrap, sign_extend
 from ..fields.montgomery import carry
-from ..ops.blake3 import merge_level, merkle_tree_device
+from ..ops.blake3 import merge_levels, merge_plan, merkle_tree_device
 from ..zip.device import (
     DeviceZipData,
     _z_words,
@@ -139,10 +139,10 @@ def commit_device_sharded_2d(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Me
         home = devs[0]
         joined = [fetch_global([layers[lvl] for _, layers in subs], 1, home)
                   for lvl in range(len(subs[0][1]))]
-        level = joined[-1]  # (R_loc, c, 8): the subtrees' roots
-        while level.shape[1] > 1:
-            level = merge_level(level)
-            joined.append(level)
+        # the subtrees' roots, (R_loc, c, 8), merged up in one launch for up
+        # to 2^MERGE_LEVELS column blocks
+        for count in merge_plan(c_size.bit_length() - 1):
+            joined += merge_levels(joined[-1], count)
         enc = fetch_global([e for e, _ in subs], 1, home)
         datas.append(DeviceZipData(fm.narrow(enc), joined))
     mesh.note("commit", f"{r_size} row blocks x {c_size} column blocks")
