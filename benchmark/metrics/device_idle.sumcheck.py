@@ -1,0 +1,6 @@
+"""``device_idle``, read the same way, in the sumcheck cell, where it moves
+``prove_p95_s`` (that cell reports no ``prove_s``)."""
+
+from benchmark.harness.spec import module
+
+read = module("metrics", "device_idle").read

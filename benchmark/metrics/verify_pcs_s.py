@@ -1,0 +1,7 @@
+"""Mean over the window's steps of the program's ``verify.pcs`` stage wall."""
+
+from benchmark.harness.readout import stage_mean
+
+
+def read(run):
+    return stage_mean(run, "verify.pcs")

@@ -1,0 +1,8 @@
+"""Puts the checkout's root on ``sys.path`` for the benchmark's tests."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
