@@ -55,12 +55,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 3b. both sumcheck drivers on the same device tables (compare_drivers):
    Spartan's sumchecks of the R1CS at 2^12, 2^14, 2^16 and 2^20 and of
    path A at 2^20, from clones of one transcript, in turns: equal proofs
-   and transcript states, the walls of spartan.sumcheck1/2 under each,
+   and transcript states, each driver call's wall (synced at both ends),
    the host fetches of each sumcheck (1 for device FS) and the device-FS
    driver's steps; its enqueue loop runs under
    torch.cuda.set_sync_debug_mode("error");
-4. a second 2^20 prove under torch.profiler: the device's busy share and
-   the kernels that take the most device time;
+4. none: the benchmark's traced runs (benchmark/) read the device's busy
+   share and the kernels that take the most device time;
 5. path A, a degree-4 CCS outside K3's scope (z⁴ − z³·z = 0, five
    matrices, sumcheck 1 on the generic tier): the 2^10 proof hashes to
    PATH_A_SHA256_2P10 (the JAX host prover's proof, pinned by
@@ -122,8 +122,10 @@ comparisons' are not counted.  The last line is the JSON result object.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
+import os
 import random
 import re
 import subprocess
@@ -639,6 +641,25 @@ def phase_fs(info: dict, floor_ms: float) -> dict:
 FS_SPLITS: list[dict] = []  # _fs_checked's times of each sumcheck's steps
 
 
+def _recording(fn):
+    """``fn`` with ``ZINC_TPU_TRACE`` set while it runs, so that the port
+    records its spans' walls in ``zinc_tpu_torch.timing.STAGES``."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        was = os.environ.get("ZINC_TPU_TRACE")
+        os.environ["ZINC_TPU_TRACE"] = "1"
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if was is None:
+                del os.environ["ZINC_TPU_TRACE"]
+            else:
+                os.environ["ZINC_TPU_TRACE"] = was
+
+    return run
+
+
 def stages_through_host(mesh, device) -> bool:
     """True when a mesh over processes gathers the sumcheck's tensors on
     ``device`` through the host (``ProcessGroup.stages``)."""
@@ -699,23 +720,30 @@ def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None, mesh
     return proof, randomness, [m[0] for m in mles]
 
 
+def _sync_cards() -> None:
+    """Wait for every card's queued work (nothing where there is no card)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", mesh=None) -> dict:
     """Spartan's two sumchecks of ``fixture`` (2^20 entries) through both
     drivers on the same device tables, from clones of one transcript, in
     turns (device FS, per-round, per-round, device FS, ...): equal proofs,
-    r_y, v and transcript states; the walls of spartan.sumcheck1/2 of each
-    run and each sumcheck's host fetches.  The device-FS runs enqueue under
+    r_y, v and transcript states; the wall of each driver call (sumcheck
+    1 and 2 of each run), synced before and after so that it holds the
+    call's device work and none queued before it, and each sumcheck's host
+    fetches.  The device-FS runs enqueue under
     set_sync_debug_mode("error").  With a ``mesh`` (in one process or over
     several) both drivers are the sharded ones on its shards, the tables on
     its first device.  Returns the walls by driver."""
-    import functools
-
     import zinc_tpu_torch as zt
     from zinc_tpu_torch.parallel import prove_sharded
     from zinc_tpu_torch.spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
     from zinc_tpu_torch.sumcheck.device import prove_as_subprotocol_device
     from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
-    from zinc_tpu_torch.timing import STAGES
     from zinc_tpu_torch.zinc import _z_vector
 
     ccs, statement, wit = fixture
@@ -734,19 +762,32 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", m
     order = [name for i in range(turns) for name in
              (("device_fs", "per_round") if i % 2 == 0 else ("per_round", "device_fs"))]
     walls, results = {name: [] for name in drivers}, {}
+
+    def synced(driver, w: list):
+        def call(*args, **kwargs):
+            _sync_cards()
+            t0 = time.perf_counter()
+            out = driver(*args, **kwargs)
+            _sync_cards()
+            w.append(time.perf_counter() - t0)
+            return out
+
+        return call
+
     for name in order:
         tt = t.clone()
-        STAGES.clear()
         SUMCHECKS.clear()
         FS_SPLITS.clear()
+        w: list[float] = []
         proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, tt, cfg,
-                                             sumcheck=drivers[name])
-        w = [STAGES["spartan.sumcheck1"], STAGES["spartan.sumcheck2"]]
+                                             sumcheck=synced(drivers[name], w))
+        if len(w) != 2:
+            raise AssertionError(f"{label}: the {name} run called its driver {len(w)} times")
         walls[name].append(w)
         splits = "; device-FS steps (ms): " + json.dumps(
             [{k: round(v, 3) for k, v in sp.items()} for sp in FS_SPLITS]) if FS_SPLITS else ""
-        log(f"[drivers] {label}, {name}: spartan.sumcheck1 {w[0]:.4f} s, spartan.sumcheck2 "
-            f"{w[1]:.4f} s; per sumcheck: {list(SUMCHECKS)}{splits}")
+        log(f"[drivers] {label}, {name}: sumcheck 1 {w[0]:.4f} s, sumcheck 2 {w[1]:.4f} s "
+            f"(synced driver calls); per sumcheck: {list(SUMCHECKS)}{splits}")
         if any(rec["driver"] != name for rec in SUMCHECKS) or len(SUMCHECKS) != 2:
             raise AssertionError(f"{label}: the {name} run recorded {list(SUMCHECKS)}")
         if name == "device_fs" and any(rec["fetches"] != fs_fetches(rec, staged)
@@ -758,7 +799,7 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", m
     med = {name: [sorted(w[i] for w in ws)[len(ws) // 2] for i in (0, 1)]
            for name, ws in walls.items()}
     log(f"[drivers] {label}: proofs, r_y, v and transcript states equal under both drivers: "
-        f"{same}; median spartan.sumcheck1 / 2 over {turns} runs each (s): {json.dumps(med)}")
+        f"{same}; median sumcheck 1 / 2 over {turns} runs each (s): {json.dumps(med)}")
     if not same:
         raise AssertionError(f"{label}: the two drivers disagree")
     return walls
@@ -847,6 +888,7 @@ def check_launches(launches: dict, must: tuple, must_not: tuple, what: str) -> N
                              f"{stray}: {launches}")
 
 
+@_recording
 def prove_verify_large(label: str, fixture, must: tuple, must_not: tuple, mesh=None) -> dict:
     """One prove (on the card, or on ``mesh``) and one verify on the card
     with the launch counts of that run, the stage walls, the proof size and
@@ -1143,6 +1185,7 @@ def phase8(device="cuda") -> list[dict]:
 RANK_TIMEOUT_S = 600  # a rank's whole run: start, fixture, prove, verify
 
 
+@_recording
 def rank_main(argv: list[str]) -> int:
     """One rank of phase 9 (``chip_smoke.py --rank R ...``): join the group;
     run Spartan's two sumchecks of the 2^log_n R1CS (seed 5) under both
@@ -1235,7 +1278,6 @@ def run_ranks(label: str, log_n: int, devices: str, backend: str | None, world: 
     """``world`` ranks of ``rank_main``, each a child process with its output
     in a temporary file; a rank that exits non-zero or is still running
     after RANK_TIMEOUT_S fails the phase, and every child is stopped."""
-    import os
     import tempfile
 
     port = _free_port()
@@ -1306,7 +1348,8 @@ def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commi
         log(f"{who} stage walls (s): {json.dumps(res['walls'])}")
         log(f"{who} sumchecks: {res['sumchecks']}")
         log(f"{who} launches: {res['launches']}")
-        log(f"{who} spartan.sumcheck1 / 2 by driver (s): {json.dumps(res['driver_walls'])}")
+        log(f"{who} sumcheck 1 / 2 by driver, synced calls (s): "
+            f"{json.dumps(res['driver_walls'])}")
         if res["sha256"] != single["sha256"]:
             raise AssertionError(f"{who}'s proof differs from phase 3's")
         if res["transcript"] != results[0]["transcript"]:
@@ -1420,39 +1463,6 @@ def phase10(device: str = "cuda", **sizes) -> None:
                                      "round_eval_gruen")
 
 
-def profile_prove(log_n: int) -> None:
-    """A second 2^log_n prove under torch.profiler: the device's busy share
-    (summed kernel and copy time over the wall) and the kernels that take
-    the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    import zinc_tpu_torch as zt
-
-    ccs, statement, wit, ztypes, _ = setup(1 << log_n, 5)
-    t = zt.KeccakTranscript()
-    cfg = zt.draw_random_field(statement.public_input, t, ztypes.n_words, 4)
-    prover = zt.ZincProver(ztypes, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prover.prove(statement, wit, t, ccs, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies): an op's own entry repeats
-    # the device time of the kernels it launched
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    busy = sum(dev_us(e) for e in events) / 1e6
-    log(f"[profile 2^{log_n}] prove wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}% of the wall)")
-    for e in sorted(events, key=dev_us, reverse=True)[:15]:
-        log(f"[profile] {dev_us(e) / 1e3:10.2f} ms  x{e.count:<6} {e.key[:90]}")
-
-
 def main() -> int:
     import torch
 
@@ -1470,7 +1480,6 @@ def main() -> int:
         compare_drivers(f"R1CS 2^{log_n}", setup(1 << log_n, 5)[:3])
     compare_drivers("R1CS 2^20", setup(1 << 20, 5)[:3], turns=4)
     compare_drivers("path A 2^20", degree4_fixture(1 << 20, 5))
-    profile_prove(20)
     runs = [single["launches"], phase5(20), phase6(20), phase7(20, single)]
     runs += phase8()
     runs += phase9(single)

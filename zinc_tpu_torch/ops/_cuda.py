@@ -35,6 +35,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..timing import timed
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -179,8 +181,9 @@ def _load(target):
         return l
     with _lock:
         if target not in _libs:
-            build([target])
-            l = ctypes.CDLL(BUILD[target]["path"])
+            with timed("cuda.build"):
+                build([target])
+                l = ctypes.CDLL(BUILD[target]["path"])
             for name, args in (_BLAKE3_API if target == BLAKE3 else _FIELD_API).items():
                 fn = getattr(l, name)
                 fn.argtypes, fn.restype = args, _I

@@ -49,18 +49,22 @@ def upload_matrix(cfg: FieldConfig, m: SparseMatrix, device, with_col_views: boo
     ``with_col_views=False`` skips the column-sorted copy, which only the
     prover's transposed products read."""
     rows_np, cols_np, vals = m.packed_coo()
+    return make_csr(rows_np, cols_np, vals_to_field_device(cfg, vals, device), m.n_rows, m.n_cols,
+                    device, with_col_views)
+
+
+def vals_to_field_device(cfg: FieldConfig, vals, device) -> torch.Tensor:
+    """A matrix's packed values (``packed_coo``) in the field, on ``device``."""
     if isinstance(vals, np.ndarray):
-        vals_f = i64_to_field_device(cfg, vals, device)
-    else:
-        vals_f = ints_to_field_device(cfg, vals, device)
-    return _make_csr(rows_np, cols_np, vals_f, m.n_rows, m.n_cols, device, with_col_views)
+        return i64_to_field_device(cfg, vals, device)
+    return ints_to_field_device(cfg, vals, device)
 
 
 def _ends(sorted_idx: np.ndarray, n: int) -> np.ndarray:
     return np.searchsorted(sorted_idx, np.arange(n + 1), side="left").astype(np.int64)
 
 
-def _make_csr(rows_np, cols_np, vals_f, n_rows, n_cols, device, with_col_views=True) -> DeviceCsr:
+def make_csr(rows_np, cols_np, vals_f, n_rows, n_cols, device, with_col_views=True) -> DeviceCsr:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 

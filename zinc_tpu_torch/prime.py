@@ -14,6 +14,7 @@ then run ``get_prime`` and build the field config.
 from __future__ import annotations
 
 from .fields.config import FieldConfig
+from .timing import timed
 from .transcript import KeccakTranscript
 
 
@@ -63,8 +64,9 @@ def draw_random_field(
     they are absorbed as little-endian two's-complement byte strings
     (``cast_slice(input.as_words())`` in the reference).
     """
-    width = 1 << (64 * int_nwords)
-    for v in public_inputs:
-        transcript.absorb((v % width).to_bytes(8 * int_nwords, "little"))
-    q = get_prime(transcript, field_n64)
-    return FieldConfig(q, field_n64)
+    with timed("draw_field"):
+        width = 1 << (64 * int_nwords)
+        for v in public_inputs:
+            transcript.absorb((v % width).to_bytes(8 * int_nwords, "little"))
+        q = get_prime(transcript, field_n64)
+        return FieldConfig(q, field_n64)

@@ -27,7 +27,7 @@ from .fields import montgomery as fm
 from .fields.montgomery import device_field
 from .ops.field_kernels import mont_mul
 from .ops.field_map import i64_to_field_device, ints_to_field_device
-from .ops.sparse import eval_table_device, mat_vec_mul_device, upload_matrix
+from .ops.sparse import eval_table_device, make_csr, mat_vec_mul_device, vals_to_field_device
 from .poly.device import _eq_table_device, fps_to_tensor
 from .sumcheck.device import wants_gruen
 from .sumcheck.device_fs import prove_as_subprotocol_device_fs
@@ -43,9 +43,16 @@ class DeviceStatement:
 
     @staticmethod
     def upload(cfg: FieldConfig, statement: Statement, device) -> "DeviceStatement":
-        return DeviceStatement(
-            matrices=[upload_matrix(cfg, m, device) for m in statement.constraints], cfg=cfg
-        )
+        """``ops.sparse.upload_matrix`` of each matrix, its three steps spanned."""
+        matrices = []
+        for m in statement.constraints:
+            with timed("prove.upload.coo"):
+                rows, cols, vals = m.packed_coo()
+            with timed("prove.upload.field_map"):
+                vals_f = vals_to_field_device(cfg, vals, device)
+            with timed("prove.upload.csr"):
+                matrices.append(make_csr(rows, cols, vals_f, m.n_rows, m.n_cols, device))
+        return DeviceStatement(matrices=matrices, cfg=cfg)
 
 
 def z_to_device(cfg: FieldConfig, z_ccs: list[int], device) -> torch.Tensor:

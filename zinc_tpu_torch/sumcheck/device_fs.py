@@ -45,6 +45,7 @@ from ..ops.keccak_kernel import (
     unpack_state,
 )
 from ..poly.device import fps_to_tensor, limbs_to_fps
+from ..timing import timed
 from ..transcript import KeccakTranscript
 from .executor import HOST_TAIL, SUMCHECKS, DeviceSumcheckExecutor, make_executor
 from .prover import _absorb_nvars_degree, _fold, _round_evals
@@ -290,8 +291,9 @@ def finish_fs(transcript: KeccakTranscript, run: FsRun):
     ev = ev.reshape(run.n_dev, run.degree + 1, n32)
     proof = [limbs_to_fps(ev[k], cfg) for k in range(run.n_dev)]
     randomness = limbs_to_fps(rw.reshape(run.n_dev, n32), cfg)
-    return _host_tail(transcript, cfg, arr.reshape(rest.shape), proof, randomness, run.n_dev,
-                      run.nvars, run.degree, ex.comb)
+    with timed("sumcheck.host_tail"):
+        return _host_tail(transcript, cfg, arr.reshape(rest.shape), proof, randomness, run.n_dev,
+                          run.nvars, run.degree, ex.comb)
 
 
 def prove_fs_with_executor(transcript: KeccakTranscript, ex: DeviceSumcheckExecutor, nvars: int,
@@ -299,9 +301,12 @@ def prove_fs_with_executor(transcript: KeccakTranscript, ex: DeviceSumcheckExecu
     """The device-FS sumcheck over ``ex``'s blocks (one device, or a mesh's
     shards, in one process or over several): (proof, randomness, folded
     host MLEs)."""
-    run = start_fs(transcript, ex, nvars, degree)
-    enqueue_fs_rounds(run)
-    return finish_fs(transcript, run)
+    with timed("sumcheck.fs.start"):
+        run = start_fs(transcript, ex, nvars, degree)
+    with timed("sumcheck.fs.enqueue"):
+        enqueue_fs_rounds(run)
+    with timed("sumcheck.fs.finish"):
+        return finish_fs(transcript, run)
 
 
 def prove_as_subprotocol_device_fs(

@@ -66,6 +66,7 @@ from ..fields import montgomery as fm
 from ..fields.montgomery import device_field
 from ..ops.field_kernels import mont_mul
 from ..poly.device import eq_levels, fps_to_limbs, fps_to_tensor, limbs_to_fps
+from ..timing import timed
 from . import kernels
 
 HOST_TAIL = 64  # tables of at most this many entries finish on the host
@@ -274,24 +275,28 @@ class DeviceSumcheckExecutor:
         """The round's evaluations at 0..degree, after folding r_prev (None
         in round 0)."""
         if self._host_mles is not None:
-            self._host_mles = _fold(self._host_mles, r_prev)
-            return self._host_round()
+            with timed("sumcheck.host_tail"):
+                self._host_mles = _fold(self._host_mles, r_prev)
+                return self._host_round()
         r = None
         if r_prev is not None:
             self._ratchet(r_prev)
             r = fps_to_limbs([r_prev], self.cfg)[0]
         if self.size // (1 if r is None else 2) <= HOST_TAIL:
-            if r is not None:
-                self._fold(r)
-            self._demote_to_host()
-            return self._host_round()
-        sums = self.launch_round(r)
-        gruen = (self.pref, self.beta[self.folds]) if self.tier == "gruen" else None
-        return self._values(sums, gruen)
+            with timed("sumcheck.host_tail"):
+                if r is not None:
+                    self._fold(r)
+                self._demote_to_host()
+                return self._host_round()
+        with timed("sumcheck.device_round"):
+            sums = self.launch_round(r)
+            gruen = (self.pref, self.beta[self.folds]) if self.tier == "gruen" else None
+            return self._values(sums, gruen)
 
     def final_fold(self, r: Fp) -> None:
         if self._host_mles is not None:
-            self._host_mles = _fold(self._host_mles, r)
+            with timed("sumcheck.host_tail"):
+                self._host_mles = _fold(self._host_mles, r)
         else:
             self._ratchet(r)
             self._fold(fps_to_limbs([r], self.cfg)[0])
@@ -329,11 +334,12 @@ def prove_with_executor(
     proof = []
     for rnd in range(nvars):
         evals = executor.round(randomness[-1] if rnd > 0 else None)
-        transcript.absorb_field_slice(evals)
-        proof.append(evals)
-        r = transcript.get_challenge(cfg)
-        transcript.absorb_field(r)
-        randomness.append(r)
+        with timed("sumcheck.challenge"):
+            transcript.absorb_field_slice(evals)
+            proof.append(evals)
+            r = transcript.get_challenge(cfg)
+            transcript.absorb_field(r)
+            randomness.append(r)
     executor.final_fold(randomness[-1])
     SUMCHECKS.append({"driver": "per_round", "device_rounds": executor.launched,
                       "fetches": executor.fetches, "sharded_rounds": executor.sharded_rounds})

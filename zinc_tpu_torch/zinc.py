@@ -36,7 +36,7 @@ from .transcript import KeccakTranscript
 from .zip.code import DefaultLinearCodeSpec, LinearCodeSpec, RaaCode, ZipTypes
 from .zip.transcript import PcsTranscript
 from .ops._cuda import target_device
-from .timing import timed
+from .timing import carried, timed
 from .zip.pcs import ZipCommitment, commit, open_poly, setup, verify_poly
 
 BACKENDS = ("host", "device")
@@ -113,27 +113,33 @@ class ZincProver:
         self, statement: Statement, wit: Witness, transcript: KeccakTranscript, ccs: CCS,
         cfg: FieldConfig,
     ) -> ZincProof:
-        if self.backend == "host":
-            return self._prove_host(statement, wit, transcript, ccs, cfg)
+        with timed("prove", root=True):
+            prove = self._prove_host if self.backend == "host" else self._prove_device
+            return prove(statement, wit, transcript, ccs, cfg)
+
+    def _prove_device(self, statement, wit, transcript, ccs, cfg) -> ZincProof:
         from .spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
         from .zip.device import commit_device, open_device
 
         mesh = self.mesh
 
-        z_ccs = _z_vector(statement, wit, ccs)
-        with timed("prove.upload"):
+        with timed("prove.z"):
+            z_ccs = _z_vector(statement, wit, ccs)
+        with timed("prove.upload", sync=True):
             dstatement = DeviceStatement.upload(cfg, statement, self.device)
-            z_f = z_to_device(cfg, z_ccs, self.device)
-        with timed("prove.spartan"):
+            with timed("prove.upload.z"):
+                z_f = z_to_device(cfg, z_ccs, self.device)
+        with timed("prove.spartan", sync=True):
             spartan_proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, transcript, cfg, mesh)
 
-        code = RaaCode(self.lc_spec, ccs.m, transcript, self.zt)
-        pp = setup(ccs.m, code, self.zt)
-        if all(-(1 << 63) <= x < (1 << 63) for x in z_ccs):
-            z_vals = np.array(z_ccs, np.int64)
-        else:
-            z_vals = z_ccs
-        with timed("prove.zip_commit"):
+        with timed("prove.code_setup"):
+            code = RaaCode(self.lc_spec, ccs.m, transcript, self.zt)
+            pp = setup(ccs.m, code, self.zt)
+            if all(-(1 << 63) <= x < (1 << 63) for x in z_ccs):
+                z_vals = np.array(z_ccs, np.int64)
+            else:
+                z_vals = z_ccs
+        with timed("prove.zip_commit", sync=True):
             if mesh is None:
                 data, z_comm = commit_device(pp, z_vals, cfg, self.device)
             elif len(mesh.axis_names) == 2:
@@ -144,7 +150,7 @@ class ZincProver:
                 from .parallel.zip import commit_device_sharded
 
                 data, z_comm = commit_device_sharded(pp, z_vals, cfg, mesh)
-        with timed("prove.zip_open"):
+        with timed("prove.zip_open", sync=True):
             pcs_transcript = PcsTranscript()
             # row blocks spread over processes are opened with the mesh's collectives
             group = mesh.group if mesh is not None and isinstance(data, list) else None
@@ -189,6 +195,10 @@ class ZincVerifier:
         self, statement: Statement, proof: ZincProof, transcript: KeccakTranscript, ccs: CCS,
         cfg: FieldConfig,
     ) -> None:
+        with timed("verify", root=True):
+            self._verify(statement, proof, transcript, ccs, cfg)
+
+    def _verify(self, statement, proof, transcript, ccs, cfg) -> None:
         with timed("verify.draw_field"):
             drawn = draw_random_field(statement.public_input, transcript, self.zt.n_words, cfg.n64)
             if drawn != cfg:
@@ -219,7 +229,7 @@ class ZincVerifier:
             code = RaaCode(self.lc_spec, ccs_f.m, transcript, self.zt)
             pp = setup(ccs_f.m, code, self.zt)
         pcs_transcript = PcsTranscript.from_proof(proof.zip_proof.pcs_proof)
-        with timed("verify.pcs"):
+        with timed("verify.pcs", sync=True):
             try:
                 verify_poly(pp, proof.zip_proof.z_comm, r_y, proof.zip_proof.v, pcs_transcript,
                             cfg, device)
@@ -238,20 +248,22 @@ class ZincVerifier:
 
         def _upload_and_eval():
             try:
-                cache = self._csr_cache
-                if cache is not None and cache[0] is statement and cache[1] == cfg.q:
-                    ms = cache[2]
-                else:
-                    ms = [upload_matrix(cfg, m, self.device, with_col_views=False)
-                          for m in statement.constraints]
-                    self._csr_cache = (statement, cfg.q, ms)
+                with timed("verify.matrices"):
+                    cache = self._csr_cache
+                    if cache is not None and cache[0] is statement and cache[1] == cfg.q:
+                        ms = cache[2]
+                    else:
+                        ms = [upload_matrix(cfg, m, self.device, with_col_views=False)
+                              for m in statement.constraints]
+                        self._csr_cache = (statement, cfg.q, ms)
                 points_ready.wait()
                 if "points" in jobs:
-                    jobs["handles"] = dispatch_mle_evals(cfg, ms, *jobs["points"])
+                    with timed("verify.matrices"):
+                        jobs["handles"] = dispatch_mle_evals(cfg, ms, *jobs["points"])
             except BaseException as e:  # re-raised after the join
                 jobs["error"] = e
 
-        worker = threading.Thread(target=_upload_and_eval, daemon=True)
+        worker = threading.Thread(target=carried(_upload_and_eval), daemon=True)
         worker.start()
         try:
             points = self._verify_spartan(proof, ccs_f, transcript, cfg)

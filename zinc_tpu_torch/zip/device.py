@@ -38,6 +38,7 @@ from ..fields.montgomery import carry, device_field
 from ..ops.blake3 import merkle_tree_device
 from ..ops.field_kernels import mont_mul
 from ..poly.device import build_eq_table_device
+from ..timing import timed
 from .pcs import ZipCommitment, ZipParams
 
 
@@ -185,43 +186,47 @@ def open_device(
     n_open = pp.code.num_column_opening()
     cols = np.array([transcript.squeeze_challenge_idx(cfg, cw) for _ in range(n_open)])
 
-    combined_rows = []
-    if prox_coeffs:
-        if isinstance(z_values, np.ndarray) and z_values.dtype == np.int64:
-            e_mag8, e_sign = i64_to_mag8(z_values)
+    with timed("prove.zip_open.combine"):
+        combined_rows = []
+        if prox_coeffs:
+            if isinstance(z_values, np.ndarray) and z_values.dtype == np.int64:
+                e_mag8, e_sign = i64_to_mag8(z_values)
+            else:
+                e_mag8, e_sign = ints_to_mag8(list(z_values), 8 * pp.zt.n_words)
+            e_mag8 = _row_blocks(e_mag8.reshape(num_rows, row_len, -1), devices, group)
+            e_sign = _row_blocks(e_sign.reshape(num_rows, row_len), devices, group)
+            for coeffs in prox_coeffs:
+                c_mag8, c_sign = ints_to_mag8(coeffs, 8 * pp.zt.n_words)
+                accs = [combine_rows_acc(cm, cs, em, es) for cm, cs, em, es in zip(
+                    _row_blocks(c_mag8, devices, group), _row_blocks(c_sign, devices, group),
+                    e_mag8, e_sign)]
+                combined_rows.append(combine_acc_to_words(_summed(accs, home, group),
+                                                          2 * pp.zt.m_words))
+
+        log_rows = num_rows.bit_length() - 1
+        lo = point[len(point) - log_rows :]
+        if lo:
+            q0 = _row_blocks(build_eq_table_device(cfg, lo, home), devices, group)  # (R, n32)
+            e_f = _row_blocks(z_f.reshape(num_rows, row_len, -1), devices, group)
+            # K1 on each block, then exact word sums over its rows
+            parts = [fm.widen(mont_mul(ctx, q[:, None, :], e)).sum(dim=0) for q, e in zip(q0, e_f)]
+            combined_f = fm.reduce_lazy(ctx, _summed(parts, home, group), num_rows)
         else:
-            e_mag8, e_sign = ints_to_mag8(list(z_values), 8 * pp.zt.n_words)
-        e_mag8 = _row_blocks(e_mag8.reshape(num_rows, row_len, -1), devices, group)
-        e_sign = _row_blocks(e_sign.reshape(num_rows, row_len), devices, group)
-        for coeffs in prox_coeffs:
-            c_mag8, c_sign = ints_to_mag8(coeffs, 8 * pp.zt.n_words)
-            accs = [combine_rows_acc(cm, cs, em, es) for cm, cs, em, es in zip(
-                _row_blocks(c_mag8, devices, group), _row_blocks(c_sign, devices, group),
-                e_mag8, e_sign)]
-            combined_rows.append(combine_acc_to_words(_summed(accs, home, group),
-                                                      2 * pp.zt.m_words))
+            combined_f = z_f
 
-    log_rows = num_rows.bit_length() - 1
-    lo = point[len(point) - log_rows :]
-    if lo:
-        q0 = _row_blocks(build_eq_table_device(cfg, lo, home), devices, group)  # (R, n32)
-        e_f = _row_blocks(z_f.reshape(num_rows, row_len, -1), devices, group)
-        # K1 on each block, then exact word sums over its rows
-        parts = [fm.widen(mont_mul(ctx, q[:, None, :], e)).sum(dim=0) for q, e in zip(q0, e_f)]
-        combined_f = fm.reduce_lazy(ctx, _summed(parts, home, group), num_rows)
-    else:
-        combined_f = z_f
-
-    for combined in combined_rows:
-        transcript._write(combined.cpu().numpy().astype("<u4").tobytes())
-    gathers = [dispatch_column_gathers(b, cols, depth) for b in blocks]
-    vals, sibs = fetch_column_gathers(gathers)
-    if group is not None:  # every process's rows, in row order
-        vals = np.concatenate(group.all_gather_array(vals), axis=1)
-        if depth:
-            sibs = list(np.concatenate(group.all_gather_array(np.stack(sibs)), axis=2))
-    write_column_records(vals, sibs, depth, transcript)
-    write_eval_row(cfg, fm.to_numpy(combined_f), transcript)
+        for combined in combined_rows:
+            transcript._write(combined.cpu().numpy().astype("<u4").tobytes())
+        eval_row = fm.to_numpy(combined_f)
+    with timed("prove.zip_open.fetch"):
+        gathers = [dispatch_column_gathers(b, cols, depth) for b in blocks]
+        vals, sibs = fetch_column_gathers(gathers)
+        if group is not None:  # every process's rows, in row order
+            vals = np.concatenate(group.all_gather_array(vals), axis=1)
+            if depth:
+                sibs = list(np.concatenate(group.all_gather_array(np.stack(sibs)), axis=2))
+    with timed("prove.zip_open.write"):
+        write_column_records(vals, sibs, depth, transcript)
+        write_eval_row(cfg, eval_row, transcript)
 
 
 def dispatch_column_gathers(data: DeviceZipData, cols: np.ndarray, depth: int):

@@ -31,7 +31,7 @@ from ..ops._cuda import target_device
 from ..ops.field_kernels import mont_mul
 from ..ops.field_map import _wide_to_field
 from ..poly.device import fps_to_tensor
-from ..timing import timed
+from ..timing import carried, timed
 
 
 class PcsError(Exception):
@@ -286,11 +286,13 @@ def verify_poly(
 
     def _run_device_checks():
         try:
-            done["checks"] = _device_checks(pp, cfg, device, mag32, neg, prox, cols, q_0, encoded_f)
+            with timed("verify.pcs.device_checks"):
+                done["checks"] = _device_checks(pp, cfg, device, mag32, neg, prox, cols, q_0,
+                                                encoded_f)
         except BaseException as e:  # re-raised after the join
             done["error"] = e
 
-    worker = threading.Thread(target=_run_device_checks, daemon=True)
+    worker = threading.Thread(target=carried(_run_device_checks), daemon=True)
     worker.start()
     try:
         if not (pathsec[:, :, :8] == np.frombuffer(depth.to_bytes(8, "big"), np.uint8)).all():
