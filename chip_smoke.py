@@ -33,6 +33,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    leaves launch with its cluster tail (the whole tree, one launch), the
    leaves launch without it, the merge launch of a row deeper than a
    cluster (64 rows of 2^14 codewords) and of 9 levels, and the whole tree;
+   and the Zip open's column records (zip_records, one launch) of 1000
+   columns at the 2^14 and 2^20 opens (128 x 256 codewords, depth 8; 1024 x
+   2048, depth 11);
 1b. fs_round (the device-resident Fiat-Shamir round, csrc/fs.cu) against
    its plain version, equal in every word it writes, at the shapes the
    paths give it (bench_kernels.fs_cases: the R1CS sumchecks on one block
@@ -168,16 +171,19 @@ KERNELS = {
     "eq_table": ("cuda", "zinc_tpu_torch/csrc/eq.cu",
                  "zinc_tpu/poly/device.py:70 (_eq_table_device, XLA, not Pallas); "
                  "zinc_tpu/sumcheck/mxu_exec.py:835 (build_eq_suffix_flat, XLA, not Pallas)"),
+    "zip_records": ("cuda", "zinc_tpu_torch/csrc/zip_records.cu",
+                    "zinc_tpu/zip/device.py:261 (dispatch_column_gathers, XLA, not Pallas), "
+                    ":289 (write_column_records, numpy)"),
 }
 # the kernels each path must launch (and the dummy R1CS none of the generic tier),
 # on one device, on a mesh and on every rank of a mesh over processes: every
-# prove builds eq tables and commits; blake3_merge launches only where the
+# prove builds eq tables, commits and opens; blake3_merge launches only where the
 # commit's rows are deeper than a leaves launch merges or are split over
 # devices (tree_kernels)
-EQ_TREE_KERNELS = ("eq_table", "blake3_leaves")
-R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round") + EQ_TREE_KERNELS
+EQ_ZIP_KERNELS = ("eq_table", "blake3_leaves", "zip_records")
+R1CS_KERNELS = ("mont_mul", "fold", "round_eval", "round_eval_gruen", "fs_round") + EQ_ZIP_KERNELS
 GENERIC_KERNELS = ("round_eval_generic", "fold_round_eval")
-PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS + EQ_TREE_KERNELS
+PATH_A_KERNELS = ("mont_mul", "fold", "round_eval", "fs_round") + GENERIC_KERNELS + EQ_ZIP_KERNELS
 PATH_B_KERNELS = ("fold",) + GENERIC_KERNELS  # path B's bench keeps the per-round executor
 GENERIC_ROWS = GENERIC_KERNELS  # the phase-1 rows that also report an issue-slot floor
 
@@ -466,7 +472,7 @@ def phase1(cfg8, cfg6, info: dict) -> dict:
     e = eq_block_levels(ctx8.n32, 20)
     for log_n in (e, e + 1):  # one block, two blocks
         _check_case(bk.eq_cases(ctx8, "cuda", log_n)[0], 8, info, floor_ms, results)
-    for c in bk.merkle_cases("cuda"):
+    for c in bk.merkle_cases("cuda") + bk.zip_records_cases("cuda"):
         _check_case(c, 0, info, floor_ms, results)
     k10_rounds(device_field(cfg8), info)
     return results

@@ -179,13 +179,14 @@ def test_two_process_mesh_prove_is_the_golden(proved):
 def test_two_process_mesh_prove_runs_device_fs(proved):
     """The golden prove on two processes runs both sumchecks on the device-FS
     driver on each rank, 2 rounds of each on the 4 shards and one fetch
-    each (gloo gathers CPU tensors as they are: nothing is staged), in 11
-    all-gathers a rank; both ranks' transcripts end in the same sponge."""
+    each (gloo gathers CPU tensors as they are: nothing is staged), in 10
+    all-gathers a rank (the open's column records in one); both ranks'
+    transcripts end in the same sponge."""
     digests = []
     for rank, (rc, out) in enumerate(proved):
         assert rc == 0, out[-3000:]
         assert _line(out, "SUMCHECKS") == '[["device_fs", 1, 2], ["device_fs", 1, 2]]'
-        assert _line(out, f"DIST_OK {rank}").split()[1] == "11"
+        assert _line(out, f"DIST_OK {rank}").split()[1] == "10"
         digests.append(_line(out, "TRANSCRIPT"))
     assert digests[0] == digests[1]
 
@@ -204,12 +205,12 @@ def test_two_process_drivers_agree(tmp_path):
 def test_two_process_path_a_hashes_to_the_pin(tmp_path):
     """Path A at 2^10 (sumcheck 1 on the generic tier, the plain versions of
     K7/K10) on two processes: both ranks' proofs hash to
-    PATH_A_SHA256_2P10, both sumchecks on the device-FS driver, in 11
+    PATH_A_SHA256_2P10, both sumchecks on the device-FS driver, in 10
     all-gathers a rank."""
     for rank, (rc, out) in enumerate(_run_two(tmp_path, "path_a")):
         assert rc == 0, out[-3000:]
         calls, recs = _line(out, f"PATH_A_OK {rank}").split(" ", 1)
-        assert calls == "11" and recs == '[["device_fs", 1, 2], ["device_fs", 1, 2]]'
+        assert calls == "10" and recs == '[["device_fs", 1, 2], ["device_fs", 1, 2]]'
 
 
 def test_all_gather_stacked_is_in_rank_order(tmp_path):

@@ -1,6 +1,6 @@
 """The wrappers of the port's CUDA kernels (K1-K4, the generic tier,
-fs_round, the BLAKE3 Merkle tree and the eq level), and the port's native
-host runtime.
+fs_round, the BLAKE3 Merkle tree, the eq level and the Zip open's column
+records), and the port's native host runtime.
 
 On the CPU a wrapper takes the plain version, and only because its tensor
 lies on the CPU; bad dtypes, shapes and combinations raise.  The cases
@@ -283,7 +283,8 @@ def test_cuda_tensors_launch_the_kernels(cuda_device, ctx):
     sk.round_eval_gruen(ctx, tabs, a[:32].contiguous(), [(0,), (1,)], 3)
     assert _cuda.LAUNCHES == {"mont_mul": 1, "fold": 1, "round_eval": 1, "round_eval_gruen": 1,
                               "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0,
-                              "blake3_leaves": 0, "blake3_merge": 0, "eq_table": 0}
+                              "blake3_leaves": 0, "blake3_merge": 0, "eq_table": 0,
+                              "zip_records": 0}
 
 
 @pytest.mark.cuda
@@ -734,6 +735,35 @@ def test_eq_table_of_2p20_matches_plain_on_cuda(cuda_device, n64):
     want = fk.eq_table_plain(c, r)
     assert torch.equal(fk.eq_table(c, r), want)
     assert torch.equal(fk.eq_table(c, r, all_levels=False), want[: 1 << 20])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,depth", [(128, 256, 8), (1024, 2048, 11)])
+def test_zip_records_match_plain_on_cuda(cuda_device, rows, n, depth):
+    """The column records' kernel equals its plain version at the 2^14 and
+    2^20 opens' shapes (1000 columns of 8-word codewords), in one launch an
+    open; two opens of one size make one pinned staging buffer, and each
+    fetches the records once."""
+    from zinc_tpu_torch.ops.zip_records import pack_records, pack_records_plain
+    from zinc_tpu_torch.zip import device as zd
+
+    enc = _codewords((rows, n, 8), torch.int32, rows + depth, cuda_device)
+    layers = [_codewords((rows, n >> lvl, 8), torch.int64, 70 + lvl, cuda_device)
+              for lvl in range(depth)]
+    cols = np.random.default_rng(depth).integers(0, n, size=1000)
+    idx = torch.from_numpy(cols).to(cuda_device)
+    _cuda.reset_launches()
+    got = pack_records(enc, layers, idx, depth)
+    assert _cuda.LAUNCHES["zip_records"] == 1
+    assert torch.equal(got, pack_records_plain(enc, layers, idx, depth))
+    zd._STAGING.clear()
+    zd.reset_records()
+    data = zd.DeviceZipData(enc, layers)
+    first = zd._column_records([data], cols, depth).copy()
+    second = zd._column_records([data], cols, depth)
+    assert np.array_equal(first, got.cpu().numpy()) and np.array_equal(second, first)
+    assert zd.RECORDS == {"card": 2, "plain": 0, "bytes": 2 * got.numel(), "staging": 1}
+    assert _cuda.LAUNCHES["zip_records"] == 3
 
 
 @pytest.mark.cuda

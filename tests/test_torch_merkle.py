@@ -146,10 +146,12 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_blake3_library_is_built_with_the_wrappers_block():
-    """csrc/blake3.cu is its own library, built with the block the wrappers
-    plan their launches with; no field width's library compiles it."""
-    assert _cuda._sources(_cuda.BLAKE3) == ("blake3.cu",)
-    assert all("blake3.cu" not in _cuda._sources(n) for n in _cuda.KERNEL_WORDS)
+    """csrc/blake3.cu is its own library (with csrc/zip_records.cu, which
+    takes no field either), built with the block the wrappers plan their
+    launches with; no field width's library compiles them."""
+    assert _cuda._sources(_cuda.BLAKE3) == ("blake3.cu", "zip_records.cu")
+    assert all(src not in _cuda._sources(n) for n in _cuda.KERNEL_WORDS
+               for src in _cuda._sources(_cuda.BLAKE3))
     assert _cuda._defines(_cuda.BLAKE3) == [f"-DZT_B3_LOG_BLOCK={b3.LOG_BLOCK}",
                                             f"-DZT_B3_LOG_CLUSTER={b3.LOG_CLUSTER}"]
     assert (b3.LEAF_LEVELS, b3.MERGE_LEVELS) == (b3.LOG_BLOCK + b3.LOG_CLUSTER, b3.LOG_BLOCK + 1)

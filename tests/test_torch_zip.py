@@ -1,6 +1,7 @@
 """The port's Zip PCS (zinc_tpu_torch.zip) against the JAX package's host
 ``zip.pcs`` at 2^10: commitment roots and Merkle layers, opening bytes, and
-the port's verifier.  Exact equality throughout."""
+the port's verifier; the column records' packer against the host
+``open_poly``.  Exact equality throughout."""
 
 import random
 
@@ -17,6 +18,8 @@ from zinc_tpu.zip import pcs as jpcs
 from zinc_tpu.zip.code import DefaultLinearCodeSpec as JSpec
 from zinc_tpu.zip.code import RaaCode as JRaaCode
 from zinc_tpu.zip.code import ZipTypes as JZipTypes
+from zinc_tpu.zip.merkle import MerkleTree as JMerkleTree
+from zinc_tpu.zip.merkle import int_to_leaf_bytes as j_int_to_leaf_bytes
 from zinc_tpu.zip.transcript import PcsTranscript as JPcsTranscript
 from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.poly.mle import DenseMleZ
@@ -25,7 +28,11 @@ from zinc_tpu_torch.zip.transcript import PcsTranscript
 from zinc_tpu_torch.fields.integers import combine_rows_signed, i64_to_mag8, ints_to_mag8
 from zinc_tpu_torch.spartan_dev import z_to_device
 from zinc_tpu_torch.zip import pcs
-from zinc_tpu_torch.zip.device import commit_device, open_device
+from zinc_tpu_torch.ops import _cuda
+from zinc_tpu_torch.ops.blake3 import merkle_tree_device
+from zinc_tpu_torch.ops.zip_records import pack_records, pack_records_plain, record_bytes
+from zinc_tpu_torch.zip.device import (RECORDS, DeviceZipData, _column_records, commit_device,
+                                       open_device, reset_records)
 
 Q = (1 << 255) + 95
 NV = 10
@@ -89,9 +96,11 @@ def test_open_bytes_match_host_and_verify():
     data, comm = commit_device(pp, z, cfg, "cpu")
     t = PcsTranscript()
     point = [cfg.fp_from_mont(x) for x in point_ints]
+    reset_records()
     open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
     proof = t.into_proof()
     assert proof == jt.into_proof()
+    assert RECORDS == {"card": 0, "plain": 1, "bytes": 0, "staging": 0}
 
     v = DenseMleZ(NV, vals).map_to_field(cfg).evaluate(point)
     pcs.verify_poly(pp, comm, point, v, PcsTranscript.from_proof(proof), cfg, "cpu")
@@ -215,3 +224,88 @@ def test_single_row_layout_verifies():
     t = PcsTranscript()
     open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
     assert dcomm.roots == jcomm.roots and t.into_proof() == proof
+
+
+class _ColumnsOnly:
+    """A code for ``open_poly`` whose opening is its column records and a
+    field row of one entry a row: rows of one entry, no proximity rows,
+    ``n_open`` columns of ``cw`` codewords."""
+
+    row_len = 1
+
+    def __init__(self, cw: int, n_open: int):
+        self.cw, self.n_open = cw, n_open
+
+    def codeword_len(self) -> int:
+        return self.cw
+
+    def num_proximity_testing(self) -> int:
+        return 0
+
+    def num_column_opening(self) -> int:
+        return self.n_open
+
+
+@pytest.mark.parametrize("kw32", [8, 16])
+@pytest.mark.parametrize("depth", [0, 1, 8])
+@pytest.mark.parametrize("rows", [1, 2, 128])
+def test_column_records_match_open_poly(rows, depth, kw32):
+    """The plain packer's records of R random codeword rows and their
+    Merkle layers equal the bytes the JAX package's host ``open_poly``
+    writes for the same rows and trees; the same rows cut into row blocks
+    give the same records, each block's segment laid at its rows' offsets;
+    each CPU open counts as ``plain`` and fetches nothing."""
+    cw, n_open = 1 << depth, 40
+    jzt = JZipTypes(kw32 // 8)
+    rng = np.random.default_rng(1000 * rows + 10 * depth + kw32)
+    words = rng.integers(0, 1 << 32, size=(rows, cw, kw32), dtype=np.uint64).astype(np.uint32)
+    values = [int.from_bytes(words[r, c].astype("<u4").tobytes(), "little")
+              for r in range(rows) for c in range(cw)]
+    trees = [JMerkleTree.from_leaves(depth, [j_int_to_leaf_bytes(v, jzt.k_words)
+                                             for v in values[r * cw : (r + 1) * cw]])
+             for r in range(rows)]
+    nv = rows.bit_length() - 1
+    jcfg = JFieldConfig(Q, 4)
+    jpp = jpcs.ZipParams(nv, rows, _ColumnsOnly(cw, n_open), jzt)
+    jt = JPcsTranscript()
+    jpcs.open_poly(jpp, JDenseMleZ(nv, list(range(rows))), jpcs.ZipCommitmentData(values, trees),
+                   [jcfg.fp_from_mont(i + 2) for i in range(nv)], jcfg, jt)
+    want = jt.into_proof()[: n_open * sum(record_bytes(rows, kw32, depth))]
+
+    squeezes = JPcsTranscript()  # the columns open_poly squeezed: writes are not absorbed
+    cols = np.array([squeezes.squeeze_challenge_idx(jcfg, cw) for _ in range(n_open)])
+    enc = torch.from_numpy(words.view(np.int32))
+    layers = merkle_tree_device(enc, jzt.k_words)
+    reset_records()
+    one = _column_records([DeviceZipData(enc, layers)], cols, depth)
+    assert one.shape == (n_open, len(want) // n_open) and one.tobytes() == want
+    assert torch.equal(pack_records_plain(enc, layers, torch.from_numpy(cols), depth),
+                       torch.from_numpy(one))
+    n_blocks = min(rows, 4)
+    rb = rows // n_blocks
+    blocks = [DeviceZipData(enc[i * rb : (i + 1) * rb], [x[i * rb : (i + 1) * rb] for x in layers])
+              for i in range(n_blocks)]
+    assert _column_records(blocks, cols, depth).tobytes() == want
+    assert RECORDS == {"card": 0, "plain": 2, "bytes": 0, "staging": 0}
+
+
+def test_records_wrapper_takes_the_plain_version_and_rejects_bad_inputs():
+    enc = torch.zeros((2, 8, 8), dtype=torch.int32)
+    layers = merkle_tree_device(enc, 4)
+    cols = torch.tensor([0, 5, 7])
+    _cuda.reset_launches()
+    got = pack_records(enc, layers, cols, 3)
+    assert torch.equal(got, pack_records_plain(enc, layers, cols, 3))
+    assert got.shape == (3, sum(record_bytes(2, 8, 3))) and _cuda.LAUNCHES["zip_records"] == 0
+    with pytest.raises(TypeError):
+        pack_records(enc.to(torch.int64), layers, cols, 3)
+    with pytest.raises(TypeError):
+        pack_records(enc, layers, cols.to(torch.int32), 3)
+    with pytest.raises(ValueError):
+        pack_records(enc, layers, cols, 2)  # 8 codewords a row have paths of depth 3
+    with pytest.raises(ValueError):
+        pack_records(enc[:, :, :7], layers, cols, 3)  # an odd word count
+    with pytest.raises(ValueError):
+        pack_records(enc, [layers[0], layers[2], layers[1]], cols, 3)  # levels out of order
+    with pytest.raises(ValueError):
+        pack_records(enc, layers[:2], cols, 3)

@@ -381,6 +381,43 @@ def merkle_cases(device, rows: int = 1024, n: int = 2048, k_words: int = 4, seed
     ]
 
 
+def zip_records_cases(device, n_open: int = 1000, seed: int = 28) -> list[dict]:
+    """The Zip open's column records at the 2^14 and 2^20 R1CS opens (128
+    rows of 256 codewords, depth 8; 1024 rows of 2048, depth 11; 8 words a
+    codeword, ``n_open`` columns), random words and digest lanes.  Bytes:
+    the distinct opened columns' values (4·kw32 a row) and the distinct
+    siblings' lanes (64 a node) read once, the columns read, the records
+    written once; the records repeat a sibling many times (every node of the
+    top levels), and those repeats are the cache's, not the bound's.  None in
+    a checkout before the kernel."""
+    import numpy as np
+    import torch
+
+    try:
+        from zinc_tpu_torch.ops import zip_records as zr
+    except ImportError:
+        return []
+    rng = np.random.default_rng(seed)
+    out = []
+    for rows, n in ((128, 256), (1024, 2048)):
+        depth = n.bit_length() - 1
+        enc = torch.from_numpy(rng.integers(0, 1 << 32, size=(rows, n, 8), dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(device)
+        layers = [torch.from_numpy(rng.integers(0, 1 << 32, size=(rows, n >> lvl, 8),
+                                                dtype=np.int64)).to(device)
+                  for lvl in range(depth)]
+        cols = torch.from_numpy(rng.integers(0, n, size=n_open)).to(device)
+        host = cols.cpu().numpy()
+        nodes = sum(len(np.unique((host >> lvl) ^ 1)) for lvl in range(depth))
+        read = len(np.unique(host)) * rows * 4 * 8 + nodes * rows * 64 + n_open * 8
+        out.append(_case(
+            "zip_records", f"{n_open} columns of {rows} x {n} x 8 words, depth {depth}",
+            lambda a=(enc, layers, cols, depth): zr.pack_records(*a),
+            lambda a=(enc, layers, cols, depth): zr.pack_records_plain(*a), 0,
+            read + n_open * sum(zr.record_bytes(rows, 8, depth))))
+    return out
+
+
 FS_WORDS = (8, 6, 16)  # n64 = 4 (every path), 3 and 8 (the widest field)
 
 
@@ -575,6 +612,7 @@ def main(argv=None) -> None:
     todo += [(n32, c) for n32 in FS_WORDS[1:]
              for c in eq_cases(device_field(field_of_words(n32)), "cuda")]
     todo += [(0, c) for c in merkle_cases("cuda")]
+    todo += [(0, c) for c in zip_records_cases("cuda")]
     for n32, c in todo:
         ms = device_ms(c["kernel"])
         bound, by = bound_ms(n32, c["bytes"], c["full"], c["lazy"], info["max_sm_mhz"],

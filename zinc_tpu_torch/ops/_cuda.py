@@ -3,8 +3,9 @@
 The sources in ``zinc_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface, loaded with
 ``ctypes``: the field kernels (``FIELD_SOURCES``) once per field width,
-``-DZT_WORDS=n32`` binding them to one word count, and the BLAKE3 kernels
-(``csrc/blake3.cu``), which take no field, once, as the ``BLAKE3`` target.
+``-DZT_WORDS=n32`` binding them to one word count, and the kernels that
+take no field (``BLAKE3_SOURCES``: the BLAKE3 Merkle tree and the Zip
+open's column records) once, as the ``BLAKE3`` target.
 Each library is named by its target and a hash of the sources and flags,
 in ``zinc_tpu_torch/_build/``.  A library is built at the first kernel call
 on a CUDA tensor that needs it (never at import), or ahead by
@@ -41,15 +42,17 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 FIELD_SOURCES = ("mont_mul.cu", "sumcheck.cu", "generic.cu", "fs.cu", "eq.cu")
-SOURCES = FIELD_SOURCES + ("blake3.cu",)
+# the sources of the BLAKE3 target, which take no field
+BLAKE3_SOURCES = ("blake3.cu", "zip_records.cu")
+SOURCES = FIELD_SOURCES + BLAKE3_SOURCES
 HEADERS = ("field.cuh", "generic.cuh", "round_eval.cuh", "round_sums.cuh", "keccak.cuh")
 # the word counts the kernels take: n32 = 2·n64 for n64 = 1..8 (64 to 512 bits)
 KERNEL_WORDS = tuple(range(2, 17, 2))
 
 LAUNCHES = {"mont_mul": 0, "fold": 0, "round_eval": 0, "round_eval_gruen": 0,
             "round_eval_generic": 0, "fold_round_eval": 0, "fs_round": 0,
-            "blake3_leaves": 0, "blake3_merge": 0, "eq_table": 0}
-# the target of csrc/blake3.cu, beside the field widths' targets (their n32)
+            "blake3_leaves": 0, "blake3_merge": 0, "eq_table": 0, "zip_records": 0}
+# the target of BLAKE3_SOURCES, beside the field widths' targets (their n32)
 BLAKE3 = "blake3"
 # target -> {"seconds", "path", "cached", "ptxas"}
 BUILD: dict = {}
@@ -79,7 +82,7 @@ def _nvcc() -> str:
 
 
 def _sources(target) -> tuple[str, ...]:
-    return ("blake3.cu",) if target == BLAKE3 else FIELD_SOURCES
+    return BLAKE3_SOURCES if target == BLAKE3 else FIELD_SOURCES
 
 
 def _defines(target) -> list[str]:
@@ -172,6 +175,7 @@ _BLAKE3_API = {
     "zt_blake3_leaves": [_P, _P, _I64, _I, _I, _I, _P],
     "zt_blake3_merge": [_P, _P, _I64, _I, _P],
     "zt_blake3_max_clusters": [_I, _P],
+    "zt_zip_records": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
 }
 
 
@@ -197,7 +201,8 @@ def lib(n32: int):
 
 
 def blake3_lib():
-    """The loaded BLAKE3 kernel library (built on first use)."""
+    """The loaded library of the kernels that take no field, the BLAKE3
+    tree's and the column records' (built on first use)."""
     return _load(BLAKE3)
 
 

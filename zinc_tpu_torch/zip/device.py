@@ -8,10 +8,13 @@ The port of ``zinc_tpu/zip/device.py``.  The commit runs on the device:
 (the RAA code; the ZipLinearCode encodes by one exact float64 product with
 its dense 0/1 matrix).
 
-The open computes the proximity rows (signed float64 limb products), the
-q₀-weighted field row (K1 + exact sums) and gathers the opened columns and
-Merkle siblings on the device, then writes the 1000 column records with
-bulk numpy serialization: the byte stream equals ``zip.pcs.open_poly``'s.
+The open computes the proximity rows (signed float64 limb products) and the
+q₀-weighted field row (K1 + exact sums), and packs the 1000 column records
+in their wire layout on the device (``ops/zip_records.pack_records``, one
+launch on a card), fetched in one copy into a pinned host buffer kept
+across opens (:func:`_column_records`): the byte stream equals
+``zip.pcs.open_poly``'s.  ``RECORDS`` counts the opens by path and what
+they fetched.
 """
 
 from __future__ import annotations
@@ -37,9 +40,22 @@ from ..fields.integers import (
 from ..fields.montgomery import carry, device_field
 from ..ops.blake3 import merkle_tree_device
 from ..ops.field_kernels import mont_mul
+from ..ops.zip_records import pack_records, record_bytes
 from ..poly.device import build_eq_table_device
 from ..timing import timed
 from .pcs import ZipCommitment, ZipParams
+
+
+# opens whose records the kernel packed ("card") or the plain version
+# ("plain"), the record bytes fetched from cards, and the pinned staging
+# buffers allocated ("staging": one a card, grown only for a larger stream)
+RECORDS = {"card": 0, "plain": 0, "bytes": 0, "staging": 0}
+_STAGING: dict = {}  # device -> pinned uint8 tensor, reused by every open on it
+
+
+def reset_records() -> None:
+    for k in RECORDS:
+        RECORDS[k] = 0
 
 
 @dataclass
@@ -159,8 +175,8 @@ def open_device(
     ``data`` as D row blocks (``parallel/zip.py``) opens them where they
     lie: each block's proximity accumulator and q₀-weighted row sum are
     formed on its device and added, exactly, on ``z_f``'s device before the
-    one carry and the one reduction mod q; each block's opened columns and
-    siblings are gathered on its device and written in row order.  With a
+    one carry and the one reduction mod q; each block's records segment
+    is packed on its device and laid in row order.  With a
     ``group`` the blocks are this process's share of every process's: the
     challenges are all squeezed before any write, so every process opens
     the same columns; the int64 accumulators and row sums and the column
@@ -218,56 +234,58 @@ def open_device(
             transcript._write(combined.cpu().numpy().astype("<u4").tobytes())
         eval_row = fm.to_numpy(combined_f)
     with timed("prove.zip_open.fetch"):
-        gathers = [dispatch_column_gathers(b, cols, depth) for b in blocks]
-        vals, sibs = fetch_column_gathers(gathers)
-        if group is not None:  # every process's rows, in row order
-            vals = np.concatenate(group.all_gather_array(vals), axis=1)
-            if depth:
-                sibs = list(np.concatenate(group.all_gather_array(np.stack(sibs)), axis=2))
+        records = _column_records(blocks, cols, depth, group)
     with timed("prove.zip_open.write"):
-        write_column_records(vals, sibs, depth, transcript)
+        transcript._write(memoryview(records.reshape(-1)))
         write_eval_row(cfg, eval_row, transcript)
 
 
-def dispatch_column_gathers(data: DeviceZipData, cols: np.ndarray, depth: int):
-    """Gather the opened columns and every level's Merkle siblings on the
-    device: (vals (n_open, R, kw32) int32, [sib (n_open, R, 8) per level])."""
-    idx = torch.from_numpy(np.asarray(cols, np.int64)).to(data.enc.device)
-    vals = data.enc[:, idx, :].transpose(0, 1)
-    sibs = []
-    for lvl in range(depth):
-        sibs.append(data.layers[lvl][:, idx ^ 1, :].transpose(0, 1))
-        idx = idx >> 1
-    return vals, sibs
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    """A card's uint8 tensor in host memory, in one copy into the card's
+    pinned staging buffer (valid until the next fetch on that card); a CPU
+    tensor as it is."""
+    if not x.is_cuda:
+        return x.numpy()
+    n = x.numel()
+    buf = _STAGING.get(x.device)
+    if buf is None or buf.numel() < n:
+        buf = _STAGING[x.device] = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        RECORDS["staging"] += 1
+    out = buf[:n]
+    out.copy_(x.reshape(-1), non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
+    RECORDS["bytes"] += n
+    return out.numpy().reshape(x.shape)
 
 
-def fetch_column_gathers(gathers) -> tuple[np.ndarray, list[np.ndarray]]:
-    """The gathers of one or more row blocks, fetched and joined in row
-    order: (vals (n_open, R, kw32) uint32, [sib (n_open, R, 8) uint32])."""
-    fetched = [(v.contiguous().cpu().numpy().view(np.uint32),
-                [s.contiguous().cpu().numpy().astype(np.uint32) for s in sibs])
-               for v, sibs in gathers]
-    vals = np.concatenate([v for v, _ in fetched], axis=1)
-    sibs = [np.concatenate([s[lvl] for _, s in fetched], axis=1)
-            for lvl in range(len(fetched[0][1]))]
-    return vals, sibs
+def _column_records(blocks, cols: np.ndarray, depth: int, group=None) -> np.ndarray:
+    """The opening's column records, (n_open, rec_bytes) uint8 on the host.
 
-
-def write_column_records(vals: np.ndarray, sibs: list[np.ndarray], depth: int,
-                         transcript: PcsTranscript) -> None:
-    """Write the per-column opening records: values, then one path per row."""
-    n_open, num_rows = vals.shape[:2]
-    val_bytes = 4 * vals.shape[-1] * num_rows
-    rec_bytes = val_bytes + num_rows * (8 + depth * 32)
-    records = np.empty((n_open, rec_bytes), dtype=np.uint8)
-    records[:, :val_bytes] = vals.astype("<u4").view(np.uint8).reshape(n_open, val_bytes)
-    paths = records[:, val_bytes:].reshape(n_open, num_rows, 8 + depth * 32)
-    paths[:, :, :8] = np.frombuffer(depth.to_bytes(8, "big"), np.uint8)
-    for lvl, sib in enumerate(sibs):
-        paths[:, :, 8 + lvl * 32 : 8 + (lvl + 1) * 32] = sib.astype("<u4").view(np.uint8).reshape(
-            n_open, num_rows, 32
-        )
-    transcript._write(records.tobytes())
+    One block and no ``group``: the records as the packer wrote them, in
+    one fetch (on a card: the staging buffer, valid until the next open on
+    that card).  Several row blocks, or a ``group``: each block's segment
+    (its rows' values, then their paths) packed on its device, every
+    process's gathered in rank order, and each laid at its rows' offsets
+    in both sections."""
+    RECORDS["card" if blocks[0].enc.is_cuda else "plain"] += 1
+    cols = np.asarray(cols, np.int64)
+    segs = [pack_records(b.enc, b.layers, torch.from_numpy(cols).to(b.enc.device), depth)
+            for b in blocks]
+    if len(segs) == 1 and group is None:
+        return _fetch(segs[0])
+    if group is not None:  # every process's blocks, in row order
+        parts = np.empty((len(segs), *segs[0].shape), np.uint8)
+        for part, seg in zip(parts, segs):
+            part[...] = _fetch(seg)
+        segs = np.concatenate(group.all_gather_array(parts))
+    vb, pb = record_bytes(blocks[0].enc.shape[0], blocks[0].enc.shape[2], depth)
+    nb = len(segs)
+    out = np.empty((len(cols), nb * (vb + pb)), np.uint8)
+    for i, seg in enumerate(segs):
+        p = _fetch(seg) if isinstance(seg, torch.Tensor) else seg
+        out[:, i * vb : (i + 1) * vb] = p[:, :vb]
+        out[:, nb * vb + i * pb : nb * vb + (i + 1) * pb] = p[:, vb:]
+    return out
 
 
 def write_eval_row(cfg: FieldConfig, combined_f: np.ndarray, transcript: PcsTranscript) -> None:
