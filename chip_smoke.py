@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port of Zinc on one GPU and check it end to end.
 
     python3 chip_smoke.py            # every phase, as the quick proof that the port runs
-    python3 chip_smoke.py --cards    # phases 7(d) and 9(b) alone, on two cards or more
+    python3 chip_smoke.py --cards    # phases 7(d) and 9(b) alone, on two cards or more, and
+                                     # the 2^22 R1CS on one card and on local_mesh()
     python3 chip_smoke.py --rank R --world W --port P --log-n L --devices D
                                      # one rank of phase 9 (started by phase 9 itself)
 
@@ -199,6 +200,9 @@ N64_3_SHA256 = "facb3c5b1a8356f5f60363993fc196150c9ceecfeedf8cf32fe1dc4a5551bf8a
 # (phases 7 and 9); the device-resident Fiat-Shamir driver must keep them
 R1CS_SHA256_2P20 = "1c247053da5882809f4b39de2c551898e14cb0cff20f504233db6ea9df253a2a"
 PATH_A_SHA256_2P20 = "6f4609087fe5211bfef31dc0e5bb085adf31ab652146ea218bf1c510020244a0"
+# sha256 of the 2^22 R1CS proof (seed 5) on one card, which local_mesh()
+# over four cards reproduces (``--cards``)
+R1CS_SHA256_2P22 = "ffbdd5dad3c00a8af611ddb0f87524060cab2d8d3b6e3e73fac0375858333be2"
 
 
 def log(msg: str) -> None:
@@ -1508,10 +1512,24 @@ def main() -> int:
     return 0
 
 
+def cards_2p22(log_n: int = 22) -> None:
+    """The 2^log_n R1CS (seed 5) proved and verified on one card, then on
+    ``local_mesh()`` over every card (phase 7(d) at this size: the same
+    bytes, the sharded rounds and row blocks), the tamper rejected on each;
+    the one card's proof hashes to R1CS_SHA256_2P22."""
+    fixture = setup(1 << log_n, 5)[:3]
+    one = prove_verify_large(f"2^{log_n}", fixture,
+                             *tree_kernels(R1CS_KERNELS, GENERIC_KERNELS, log_n))
+    mesh_of_cards(log_n, one, fixture)
+    log(f"[mesh of cards 2^{log_n}] proof identical to the one card's")
+    _pinned(f"2^{log_n}", one["sha256"], R1CS_SHA256_2P22)
+
+
 def cards_main() -> int:
     """``--cards``: only what needs two cards or more, phase 7(d) and
     phase 9(b), each held to the pinned 2^20 proof (R1CS_SHA256_2P20, which
-    phase 3 checks on one card)."""
+    phase 3 checks on one card), then the 2^22 R1CS on one card and on
+    ``local_mesh()`` (:func:`cards_2p22`)."""
     import torch
 
     from zinc_tpu_torch.ops import _cuda
@@ -1524,7 +1542,8 @@ def cards_main() -> int:
     single = {"sha256": R1CS_SHA256_2P20}
     mesh_of_cards(20, single, setup(1 << 20, 5)[:3])
     nccl_ranks(single, 20)
-    log("[cards] phase 7(d) and 9(b) passed")
+    cards_2p22()
+    log("[cards] phase 7(d), 9(b) and the 2^22 mesh passed")
     return 0
 
 

@@ -301,3 +301,69 @@ def test_mesh_shapes_and_local_meshes():
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(ValueError, match="need"):
         local_mesh(have + 1)
+
+
+def test_mesh_counts_the_scatter_and_the_hand_over_exactly(monkeypatch):
+    """On 4 CPU shards at 2^10, ``parallel.MESH`` counts the copies between
+    shards as if each had a card: the scatter moves 3/4 of each sumcheck's
+    tables and of the open's z_f and q₀ rows; the hand-over moves 3 blocks
+    of HOST_TAIL entries of each sumcheck's tables.  Each prove starts the
+    count anew, and a one-device prove counts nothing."""
+    from zinc_tpu_torch.parallel import MESH
+    from zinc_tpu_torch.parallel import sumcheck as psumcheck
+
+    shapes = []
+    real = psumcheck.shard_tables
+
+    def recorded(mesh, tables):
+        shapes.append(tuple(tables.shape))
+        return real(mesh, tables)
+
+    monkeypatch.setattr(psumcheck, "shard_tables", recorded)
+    _, ccs, statement, wit = zt.dummy_ccs_of_size(N, random.Random(SEED), int_bits=62)
+    counts = []
+    for _ in range(2):
+        proof, cfg = _prove(ccs, statement, wit, cpu_mesh(4))
+        assert zt.serialize_proof(proof, cfg) == GOLDEN.read_bytes()
+        counts.append(dict(MESH))
+    assert counts[0] == counts[1]
+    n32 = 2 * cfg.n64
+    rows = len(proof.zip_proof.z_comm.roots)
+    tables = sum(t * n * w for t, n, w in shapes[:2]) * 4
+    assert [s[1:] for s in shapes[:2]] == [(N, n32)] * 2
+    assert MESH["scatter"] == 3 * (tables + (N + rows) * n32 * 4) // 4
+    assert MESH["handover"] == 3 * sum(t for t, _, _ in shapes[:2]) * HOST_TAIL * n32 * 4
+    assert MESH["bytes"] == sum(MESH[k] for k in ("scatter", "rounds", "handover", "gather"))
+    assert MESH["copies"] > 0
+    _, ccs1, st1, wit1 = zt.dummy_ccs_of_size(N, random.Random(SEED), int_bits=62)
+    t = zt.KeccakTranscript()
+    cfg1 = zt.draw_random_field(st1.public_input, t, 1, 4)
+    zt.ZincProver(zt.ZipTypes(1), device="cpu").prove(st1, wit1, t, ccs1, cfg1)
+    assert set(MESH.values()) == {0}
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["off", "ZINC_TPU_TRACE"])
+def test_mesh_spans_only_when_tracing(traced, monkeypatch):
+    """Under ``ZINC_TPU_TRACE`` a mesh prove records ``mesh.scatter``,
+    ``mesh.handover`` and ``mesh.gather`` within its root; with tracing off
+    it enters no span, syncs nothing and leaves ``STAGES`` as it was; the
+    proof's bytes are the golden ones either way."""
+    from zinc_tpu_torch import timing
+
+    calls = {"sync": 0, "record_function": 0}
+    monkeypatch.setattr(timing, "_sync", lambda: calls.__setitem__("sync", calls["sync"] + 1))
+    monkeypatch.setattr(timing, "STAGES", {})
+    monkeypatch.setattr(timing, "_ROOT_LABELS", {})
+    if traced:
+        monkeypatch.setenv("ZINC_TPU_TRACE", "1")
+    else:
+        monkeypatch.delenv("ZINC_TPU_TRACE", raising=False)
+    _, ccs, statement, wit = zt.dummy_ccs_of_size(N, random.Random(SEED), int_bits=62)
+    proof, cfg = _prove(ccs, statement, wit, cpu_mesh(4))
+    assert zt.serialize_proof(proof, cfg) == GOLDEN.read_bytes()
+    spans = {"mesh.scatter", "mesh.handover", "mesh.gather"}
+    if traced:
+        assert spans <= set(timing.STAGES)
+        assert timing.STAGES["mesh.handover"] <= timing.STAGES["prove"]
+    else:
+        assert timing.STAGES == {} and calls["sync"] == 0

@@ -9,11 +9,13 @@ byte-identical to one device's.  ``init_distributed`` and
 of ``torch.distributed`` (``mesh.py``).  The sumchecks run with the
 Fiat-Shamir sponge on the mesh's first device (``fs.py``), one host sync
 a sumcheck; over processes every process runs the same sponge on the
-all-gathered sums.  Importing it loads no CUDA code and starts no process
-group.
+all-gathered sums.  ``MESH`` counts the copies between one process's
+shards and their bytes, reset at each prove (``mesh.py``).  Importing it
+loads no CUDA code and starts no process group.
 """
 
 from .mesh import (
+    MESH,
     Mesh,
     ProcessGroup,
     fetch_global,
@@ -21,6 +23,7 @@ from .mesh import (
     init_distributed,
     local_mesh,
     local_mesh_2d,
+    reset_mesh,
     shard_on_axis,
 )
 from .fs import prove_as_subprotocol_device_fs_sharded, wants_fs_sharded
@@ -28,6 +31,7 @@ from .sumcheck import ShardedSumcheckExecutor, prove_sharded
 from .zip import commit_device_sharded, commit_device_sharded_2d
 
 __all__ = [
+    "MESH",
     "Mesh",
     "ProcessGroup",
     "init_distributed",
@@ -35,6 +39,7 @@ __all__ = [
     "fetch_global",
     "local_mesh",
     "local_mesh_2d",
+    "reset_mesh",
     "shard_on_axis",
     "ShardedSumcheckExecutor",
     "prove_sharded",

@@ -10,6 +10,17 @@ launches, sums, gathers and hand-overs.  A tensor is split into per-shard
 blocks on their devices (:func:`shard_on_axis`) and gathered back
 (:func:`fetch_global`).
 
+``MESH`` counts the copies between the shards of one process (the scatter
+of the tables and z onto the shards, each round's sums sent to the first
+shard and its r sent back, the hand-over's blocks joined on the first
+shard, and the per-block results gathered there) and their bytes, as if
+each shard had a card of its own: a mesh that repeats a device counts
+what one of separate cards copies from card to card.  The prover resets it
+at each prove's start (``ZincProver.prove``); what crosses processes is
+counted by :class:`ProcessGroup`.  The scatter, the hand-over and the
+gathers are the spans ``mesh.scatter``, ``mesh.handover`` and
+``mesh.gather`` (``timing.py``).
+
 Several processes (the reference's DCN meshes): :func:`init_distributed`
 starts ``torch.distributed`` from explicit coordinates or torch's own
 variables, and :func:`hierarchical_mesh` builds a ("host", "chip") mesh
@@ -32,8 +43,44 @@ import os
 import numpy as np
 import torch
 
+from ..timing import timed
+
 AXIS = "hc"
 HIERARCHICAL_AXES = ("host", "chip")
+
+# copies between one process's shards: in all, and their bytes in all and
+# by what moved them (the module notes)
+MESH = {"copies": 0, "bytes": 0, "scatter": 0, "rounds": 0, "handover": 0, "gather": 0}
+
+
+def reset_mesh() -> None:
+    for k in MESH:
+        MESH[k] = 0
+
+
+def moved(x: torch.Tensor, device, kind: str) -> torch.Tensor:
+    """``x`` on ``device``, counted in ``MESH`` as one copy between shards
+    of ``kind`` ("scatter", "rounds", "handover" or "gather"); the caller
+    passes only what leaves its shard."""
+    n = x.numel() * x.element_size()
+    MESH["copies"] += 1
+    MESH["bytes"] += n
+    MESH[kind] += n
+    return x.to(device)
+
+
+def scattered(blocks, devices, home: int | None = 0) -> list[torch.Tensor]:
+    """``blocks[s]`` on ``devices[s]``, contiguous.  Where the blocks lie
+    on shard ``home``, every other block counts as a copy of the scatter;
+    None where they come from elsewhere (the host), and nothing counts."""
+    return [(b if home is None or s == home else moved(b, dev, "scatter")).to(dev).contiguous()
+            for s, (b, dev) in enumerate(zip(blocks, devices))]
+
+
+def _index(devices, device) -> int | None:
+    """The first shard of ``devices`` on ``device``, or None."""
+    device = torch.device(device)
+    return next((s for s, d in enumerate(devices) if torch.device(d) == device), None)
 
 
 class ProcessGroup:
@@ -333,15 +380,22 @@ def shard_on_axis(devices, x: torch.Tensor, dim: int) -> list[torch.Tensor]:
     d = len(devices)
     if x.shape[dim] % d:
         raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split into {d} blocks")
-    return [blk.to(dev).contiguous() for blk, dev in zip(x.chunk(d, dim=dim), devices)]
+    with timed("mesh.scatter"):
+        return scattered(x.chunk(d, dim=dim), devices, _index(devices, x.device))
 
 
 def fetch_global(blocks: list[torch.Tensor], dim: int, device="cpu",
                  group: ProcessGroup | None = None) -> torch.Tensor:
     """The blocks joined along ``dim`` in shard order, on ``device``; with a
     ``group``, this process's blocks joined with every other process's, in
-    rank order (``zinc_tpu/parallel/mesh.py:150-160``)."""
-    local = torch.cat([b.to(device) for b in blocks], dim=dim)
-    if group is None:
-        return local
-    return torch.cat(group.all_gather(local), dim=dim).to(device)
+    rank order (``zinc_tpu/parallel/mesh.py:150-160``).  Where a block
+    lies on ``device``, every other block counts as a copy of the gather
+    (a fetch to the host counts nothing)."""
+    device = torch.device(device)
+    with timed("mesh.gather"):
+        home = _index([b.device for b in blocks], device)
+        local = torch.cat([b.to(device) if home is None or s == home else moved(b, device, "gather")
+                           for s, b in enumerate(blocks)], dim=dim)
+        if group is None:
+            return local
+        return torch.cat(group.all_gather(local), dim=dim).to(device)

@@ -28,14 +28,20 @@ on one device (``executor.wants_gruen``), so ``wants_gruen_sharded`` has no
 counterpart.  :func:`prove_sharded` is the per-round driver over the
 shards; the main path takes ``parallel/fs.py``, the same executor under
 the device-resident Fiat-Shamir driver, in one process or over several.
+
+The scatter of the tables onto the shards and the hand-over are the spans
+``mesh.scatter`` and ``mesh.handover``; they, each round's sums sent to
+the first shard and r and Gruen's eq slices sent out count in
+``mesh.MESH``.
 """
 
 from __future__ import annotations
 
 from ..fields.config import FieldConfig, Fp
 from ..sumcheck.executor import DeviceSumcheckExecutor, prove_with_executor
+from ..timing import timed
 from ..transcript import KeccakTranscript
-from .mesh import Mesh
+from .mesh import Mesh, moved, scattered
 
 
 def shard_tables(mesh: Mesh, tables):
@@ -44,8 +50,10 @@ def shard_tables(mesh: Mesh, tables):
     mesh's D shards do not divide the axis."""
     if tables.shape[1] % mesh.size:
         return [tables.to(mesh.first)], None
-    mine = tables.chunk(mesh.size, dim=1)[mesh.shard_offset :]
-    return [b.to(dev).contiguous() for b, dev in zip(mine, mesh.local_flat)], mesh.group
+    mine = tables.chunk(mesh.size, dim=1)[mesh.shard_offset :][: len(mesh.local_flat)]
+    with timed("mesh.scatter"):
+        home = 0 if tables.device == mesh.first else None
+        return scattered(mine, mesh.local_flat, home), mesh.group
 
 
 class ShardedSumcheckExecutor(DeviceSumcheckExecutor):
@@ -56,6 +64,15 @@ class ShardedSumcheckExecutor(DeviceSumcheckExecutor):
                  eq_beta: list[Fp] | None = None):
         blocks, group = shard_tables(mesh, tables)
         super().__init__(cfg, blocks, degree, comb, eq_beta, group)
+
+    def _to(self, x, s, device, kind):
+        return x.to(device) if s == 0 else moved(x, device, kind)
+
+    def _joined(self):
+        if self.n_blocks == 1:
+            return self.blocks[0]
+        with timed("mesh.handover"):
+            return super()._joined()
 
 
 def prove_sharded(

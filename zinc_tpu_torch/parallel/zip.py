@@ -46,6 +46,7 @@ from ..zip.device import (
     encode_rows,
     roots_of,
 )
+from ..timing import timed
 from ..zip.pcs import ZipCommitment, ZipParams
 from .mesh import Mesh, fetch_global
 
@@ -60,11 +61,13 @@ def _row_values(z_values, n_blocks: int) -> list:
 
 def _all_roots(datas, mesh: Mesh) -> ZipCommitment:
     """The commitment: the local row blocks' roots and, over several
-    processes, every process's, in row order."""
-    roots = [root for data in datas for root in roots_of(data.layers)]
-    if mesh.group is not None:
-        parts = mesh.group.all_gather_array(np.frombuffer(b"".join(roots), np.uint8))
-        roots = [bytes(p[i : i + 32]) for p in parts for i in range(0, len(p), 32)]
+    processes, every process's, in row order (the span ``mesh.gather``;
+    the roots go to the host, so ``MESH`` counts nothing)."""
+    with timed("mesh.gather"):
+        roots = [root for data in datas for root in roots_of(data.layers)]
+        if mesh.group is not None:
+            parts = mesh.group.all_gather_array(np.frombuffer(b"".join(roots), np.uint8))
+            roots = [bytes(p[i : i + 32]) for p in parts for i in range(0, len(p), 32)]
     return ZipCommitment(roots)
 
 

@@ -214,7 +214,7 @@ def _on_home(ex: DeviceSumcheckExecutor, sums: list[torch.Tensor]) -> torch.Tens
     if len(sums) == 1 and sums[0].device == home:
         local = sums[0].contiguous()[None]
     else:
-        local = torch.stack([s.to(home) for s in sums])
+        local = torch.stack([ex._to(x, s, home, "rounds") for s, x in enumerate(sums)])
     if ex.group is None:
         return local
     return ex.gather_stacked(local).flatten(0, 1)

@@ -38,6 +38,10 @@ in natural order, so the slice is that block's.  Once a block has at most
 ``HOST_TAIL`` entries, the blocks are joined on the first block's device
 (at most HOST_TAIL·D entries a table) and the rounds go on there, the pref
 ratchet unchanged.  With one block, this is the single-device sumcheck.
+Every copy between blocks' devices (r and Gruen's eq slices out to the
+blocks, the sums and the hand-over's blocks in to the first) goes through
+:meth:`DeviceSumcheckExecutor._to`, which the mesh's executor counts
+(``parallel.mesh.MESH``).
 
 **Processes.**  With a ``group`` (``parallel.mesh.ProcessGroup``) the
 blocks are this process's, blocks [rank·n, (rank+1)·n) of the D = n·world
@@ -92,12 +96,6 @@ def uses_generic(cfg: FieldConfig, comb, degree: int) -> bool:
     idx_terms = [tuple(idxs) for _, idxs in comb]
     return degree + 1 > kernels.MAX_POINTS or not kernels.classic_supported(
         idx_terms, 2 * cfg.n64, degree + 1)
-
-
-def _on(r, block: torch.Tensor):
-    """r for a launch on ``block``: host words as they are, a tensor on the
-    block's device (a device-to-device copy where it lies elsewhere)."""
-    return r.to(block.device) if isinstance(r, torch.Tensor) else r
 
 
 def _eq_factor(beta: Fp, r: Fp) -> Fp:
@@ -176,13 +174,25 @@ class DeviceSumcheckExecutor:
         self.fetches += self.group.staged - staged
         return out
 
+    def _to(self, x: torch.Tensor, s: int, device, kind: str) -> torch.Tensor:
+        """``x`` on ``device`` for or from local block ``s`` (a copy between
+        blocks' devices where it lies elsewhere); ``kind`` names the copy
+        for the mesh's count ("rounds" or "handover")."""
+        return x.to(device)
+
+    def _on(self, r, s: int):
+        """r for a launch on block s: host words as they are, a tensor on the
+        block's device."""
+        return self._to(r, s, self.blocks[s].device, "rounds") if isinstance(r, torch.Tensor) else r
+
     def _joined(self) -> torch.Tensor:
         """The whole tables on the first block's device (every process's
         blocks in rank order, each process's in local order: the global
         shard order); the blocks are no longer spread after it."""
         if self.n_blocks == 1:
             return self.blocks[0]
-        local = torch.cat([b.to(self.home) for b in self.blocks], dim=1)
+        local = torch.cat([self._to(b, s, self.home, "handover") for s, b in enumerate(self.blocks)],
+                          dim=1)
         if self.group is not None:
             local = torch.cat(self.gather_stacked(local).unbind(0), dim=1)
             self.group = None
@@ -217,7 +227,7 @@ class DeviceSumcheckExecutor:
     def _fold(self, r) -> None:
         """Fold every block by r (host words, or a tensor on the first block's
         device)."""
-        self.blocks = [kernels.fold(self.ctx, b, _on(r, b)) for b in self.blocks]
+        self.blocks = [kernels.fold(self.ctx, b, self._on(r, s)) for s, b in enumerate(self.blocks)]
         self._folded()
 
     def _ratchet(self, r: Fp) -> None:
@@ -232,8 +242,8 @@ class DeviceSumcheckExecutor:
         if self.tier == "gruen":
             first = 0 if self.group is None else self.group.rank * len(self.blocks)
             parts = self.levels[self.folds + 1].chunk(self.n_blocks)[first : first + len(self.blocks)]
-            return [kernels.round_eval_gruen(ctx, b, e.to(b.device), self.rests, n_pts)
-                    for b, e in zip(self.blocks, parts)]
+            return [kernels.round_eval_gruen(ctx, b, self._to(e, s, b.device, "rounds"), self.rests,
+                                             n_pts) for s, (b, e) in enumerate(zip(self.blocks, parts))]
         if self.tier == "classic":
             return [kernels.round_eval(ctx, b, self.idx_terms, n_pts) for b in self.blocks]
         return [kernels.round_eval_generic(ctx, b, self.idx_terms, n_pts) for b in self.blocks]
@@ -246,8 +256,8 @@ class DeviceSumcheckExecutor:
         to the first block's device.  Returns each local block's sums, on its
         device, with no host sync: both drivers' device rounds are this."""
         if r is not None and self.tier == "generic" and self.blocks[0].shape[1] // 2 > HOST_TAIL:
-            out = [kernels.fold_round_eval(self.ctx, b, _on(r, b), self.idx_terms, self.degree + 1)
-                   for b in self.blocks]
+            out = [kernels.fold_round_eval(self.ctx, b, self._on(r, s), self.idx_terms, self.degree + 1)
+                   for s, b in enumerate(self.blocks)]
             self.blocks = [folded for folded, _ in out]
             self._folded()
             sums = [s for _, s in out]
@@ -266,7 +276,7 @@ class DeviceSumcheckExecutor:
         group, every other process's, gathered in rank order (a fetch from
         each block's device)."""
         if self.group is not None:
-            local = torch.stack([s.to(self.home) for s in sums])
+            local = torch.stack([self._to(x, s, self.home, "rounds") for s, x in enumerate(sums)])
             sums = [s for part in self.group.all_gather(local) for s in part]
         self.fetches += len(sums)
         return round_values(self.cfg, sums, self.coeffs, gruen_factor)

@@ -118,10 +118,12 @@ class ZincProver:
             return prove(statement, wit, transcript, ccs, cfg)
 
     def _prove_device(self, statement, wit, transcript, ccs, cfg) -> ZincProof:
+        from .parallel.mesh import reset_mesh
         from .spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
         from .zip.device import commit_device, open_device
 
         mesh = self.mesh
+        reset_mesh()
 
         with timed("prove.z"):
             z_ccs = _z_vector(statement, wit, ccs)

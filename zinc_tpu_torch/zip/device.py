@@ -146,18 +146,33 @@ def _field_row_bytes(words: np.ndarray) -> bytes:
 def _row_blocks(x, devices, group=None) -> list[torch.Tensor]:
     """A (R, ...) host array or tensor cut into one row block per shard, of
     every process when a ``group`` is given; this process's len(devices)
-    blocks, block s on devices[s]."""
-    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    blocks, block s on devices[s].  Over several shards this is the span
+    ``mesh.scatter``, and a tensor's blocks (it lies on devices[0]) that
+    leave it count in ``parallel.mesh.MESH``; a host array's are uploads."""
+    from_host = isinstance(x, np.ndarray)
+    x = torch.from_numpy(x) if from_host else x
     world, rank = (1, 0) if group is None else (group.world, group.rank)
     mine = x.chunk(len(devices) * world)[rank * len(devices) : (rank + 1) * len(devices)]
-    return [blk.to(dev).contiguous() for blk, dev in zip(mine, devices)]
+    if len(devices) == world == 1:
+        return [mine[0].to(devices[0]).contiguous()]
+    from ..parallel.mesh import scattered
+
+    with timed("mesh.scatter"):
+        return scattered(mine, devices, None if from_host else 0)
 
 
 def _summed(parts, home, group) -> torch.Tensor:
     """Σ of integer tensors, on ``home``: the local parts, then (with a
-    group) every process's sum, exactly, as int64."""
-    local = sum(p.to(home) for p in parts)
-    return local if group is None else sum(group.all_gather(local)).to(home)
+    group) every process's sum, exactly, as int64.  Over several shards this
+    is the span ``mesh.gather``, and each part after the first (which lies
+    on ``home``) counts in ``parallel.mesh.MESH``."""
+    if len(parts) == 1 and group is None:
+        return sum(p.to(home) for p in parts)
+    from ..parallel.mesh import moved
+
+    with timed("mesh.gather"):
+        local = sum(p if s == 0 else moved(p, home, "gather") for s, p in enumerate(parts))
+        return local if group is None else sum(group.all_gather(local)).to(home)
 
 
 def open_device(
