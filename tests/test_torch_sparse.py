@@ -17,7 +17,7 @@ from zinc_tpu.poly.device import fps_to_limbs as j_fps_to_limbs
 from zinc_tpu.sparse import SparseMatrix as JSparseMatrix
 from zinc_tpu_torch.ccs import dummy_ccs_of_size
 from zinc_tpu_torch.fields.config import FieldConfig
-from zinc_tpu_torch.sparse import SparseMatrix
+from zinc_tpu_torch.sparse import PACKS, SparseMatrix
 from zinc_tpu_torch.fields import montgomery as fm
 from zinc_tpu_torch.ops import sparse as ps
 from zinc_tpu_torch.ops.field_map import i64_to_field_device, ints_to_field_device
@@ -48,6 +48,53 @@ def _pair(kind: str):
 
 def _words(jarr) -> np.ndarray:
     return fm.from_jax_limbs(np.asarray(jarr))
+
+
+def _coo_rows(kind: str):
+    """The rows of each packing case, and the path ``packed_coo`` must take."""
+    if kind == "dummy":
+        _, _, st, _ = dummy_ccs_of_size(N, random.Random(7), int_bits=62)
+        return st.constraints[2].rows, "flat"
+    if kind == "random":
+        return _random_rows(N, 8), "flat"
+    if kind == "empty":
+        return [[] for _ in range(8)], "flat"
+    if kind == "int64_ends":
+        return [[(-(1 << 63), 3)], [], [((1 << 63) - 1, 0), (5, 7)], [(0, 1)]] * 2, "flat"
+    if kind == "wide":
+        return [[(1, 3)], [], [(1 << 63, 0), (-5, 7)], [(0, 1)]] * 2, "fallback"
+    return _random_rows(N, 9), "fallback"  # "field": mapped to Fp below
+
+
+@pytest.mark.parametrize("kind", ["dummy", "random", "empty", "int64_ends", "wide", "field"])
+def test_packed_coo_matches_jax(kind):
+    rows, path = _coo_rows(kind)
+    n = len(rows)
+    m, jm_ = SparseMatrix(n, n, rows), JSparseMatrix(n, n, rows)
+    if kind == "field":
+        m, jm_ = m.map_to_field(CFG), jm_.map_to_field(JCFG)
+    before = dict(PACKS)
+    got, want = m.packed_coo(), jm_.packed_coo()
+    assert {k: PACKS[k] - before[k] for k in PACKS} == {p: int(p == path) for p in PACKS}
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
+    if path == "flat":
+        assert got[2].dtype == want[2].dtype == np.int64 and np.array_equal(got[2], want[2])
+    elif kind == "field":
+        assert isinstance(got[2], list) and [x.m for x in got[2]] == [x.m for x in want[2]]
+    else:
+        assert isinstance(got[2], list) and got[2] == want[2]
+
+
+@pytest.mark.parametrize("kind", ["dummy", "wide"])
+def test_packed_coo_memo_holds(kind):
+    rows, _ = _coo_rows(kind)
+    m = SparseMatrix(len(rows), len(rows), rows)
+    first = m.packed_coo()
+    before = dict(PACKS)
+    second = m.packed_coo()
+    assert second is first and all(a is b for a, b in zip(second, first))
+    assert PACKS == before
 
 
 @pytest.mark.parametrize("kind", ["dummy", "random"])

@@ -13,8 +13,15 @@ reference's dense ``from_matrix`` + ``evaluate`` (which materializes all
 
 from __future__ import annotations
 
+from itertools import chain
+from operator import itemgetter
+
 from .fields.config import FieldConfig, Fp
 from .poly.mle import build_eq_x_r_vec
+
+# packings built (memo misses) by path: "flat" (int64 values) or "fallback"
+# (the value list: wide ints, field elements)
+PACKS = {"flat": 0, "fallback": 0}
 
 
 class SparseMatrix:
@@ -30,30 +37,31 @@ class SparseMatrix:
 
     def packed_coo(self):
         """Memoized COO packing ``(rows i32, cols i32, vals)`` for device
-        uploads and native mirrors.  The O(nnz) Python walk over the row
-        lists is a measured ~1 s/matrix/call at 2^20, and both the prover
-        and the verifier re-upload the same statement matrices on every
-        proof — so it is built once per matrix.  ``vals`` is an int64
-        ndarray when every (integer) value fits, else the original value
-        list (wide ints / field elements)."""
+        uploads and native mirrors, in row-major entry order.  Both the
+        prover and the verifier re-upload the same statement matrices on
+        every proof, so it is built once per matrix.  The pass is flat: the
+        row indices repeat ``arange`` by the row lengths, and the columns and
+        values come from one chained list of the ``(value, col)`` pairs,
+        with no Python work per row.  ``vals`` is an int64 ndarray when every
+        (integer) value fits, else the original value list (wide ints,
+        field elements).  ``PACKS`` counts the packings by path."""
         if self._packed is None:
             import numpy as np
 
-            rs, cs, vs = [], [], []
-            for i, row in enumerate(self.rows):
-                if not row:
-                    continue
-                rs.extend([i] * len(row))
-                cs.extend(c for _, c in row)
-                vs.extend(v for v, _ in row)
-            rows_np = np.array(rs, np.int32)
-            cols_np = np.array(cs, np.int32)
-            vals: object = vs
-            if not vs or (
-                isinstance(vs[0], int)
-                and all(-(1 << 63) <= v < (1 << 63) for v in vs)
-            ):
-                vals = np.array(vs, np.int64)
+            n = len(self.rows)
+            lens = np.fromiter(map(len, self.rows), np.int64, n)
+            flat = list(chain.from_iterable(self.rows))
+            rows_np = np.repeat(np.arange(n, dtype=np.int32), lens)
+            cols_np = np.fromiter(map(itemgetter(1), flat), np.int32, len(flat))
+            vals: object = None
+            if not flat or isinstance(flat[0][0], int):
+                try:  # fromiter's OverflowError is the int64 range check
+                    vals = np.fromiter(map(itemgetter(0), flat), np.int64, len(flat))
+                except (OverflowError, TypeError):
+                    pass
+            if vals is None:
+                vals = [v for v, _ in flat]
+            PACKS["flat" if isinstance(vals, np.ndarray) else "fallback"] += 1
             self._packed = (rows_np, cols_np, vals)
         return self._packed
 
