@@ -685,7 +685,7 @@ def fs_fetches(rec: dict, staged: bool) -> int:
 
 def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None, mesh=None):
     """sumcheck.device_fs.prove_as_subprotocol_device_fs (with a ``mesh``:
-    parallel.fs's sharded driver) with its enqueue loop under
+    over its shards) with its enqueue loop under
     torch.cuda.set_sync_debug_mode("error"): any host sync in the loop
     raises (not checked where the mesh's gloo group stages the round's
     sums through the host).  Records in FS_SPLITS the host time of the
@@ -695,20 +695,13 @@ def _fs_checked(transcript, cfg, tables, nvars, degree, comb, eq_beta=None, mesh
     driver."""
     import torch
 
-    from zinc_tpu_torch.parallel import ShardedSumcheckExecutor, wants_fs_sharded
     from zinc_tpu_torch.sumcheck import device_fs
     from zinc_tpu_torch.sumcheck.executor import make_executor
 
     # a CPU rehearsal has no CUDA sync to catch, and a staged gather syncs
     cuda = tables.is_cuda and not stages_through_host(mesh, tables.device)
     t0 = time.perf_counter()
-    if mesh is None:
-        ex = make_executor(cfg, tables, degree, comb, eq_beta)
-    else:
-        if not wants_fs_sharded(cfg, comb, tables.shape[1], mesh,
-                                None if eq_beta is None else tables.shape[0]):
-            raise AssertionError(f"the sharded device-FS driver refuses {tuple(tables.shape)}")
-        ex = ShardedSumcheckExecutor(cfg, tables, degree, comb, mesh, eq_beta)
+    ex = make_executor(cfg, tables, degree, comb, eq_beta, mesh)
     run = device_fs.start_fs(transcript, ex, nvars, degree)
     if cuda:
         torch.cuda.synchronize()
@@ -750,8 +743,9 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", m
     several) both drivers are the sharded ones on its shards, the tables on
     its first device.  Returns the walls by driver."""
     import zinc_tpu_torch as zt
-    from zinc_tpu_torch.parallel import prove_sharded
-    from zinc_tpu_torch.spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
+    from zinc_tpu_torch.fields.integers import int_vector
+    from zinc_tpu_torch.ops.field_map import vector_to_field
+    from zinc_tpu_torch.spartan_dev import DeviceStatement, spartan_prove_device
     from zinc_tpu_torch.sumcheck.device import prove_as_subprotocol_device
     from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
     from zinc_tpu_torch.zinc import _z_vector
@@ -763,12 +757,8 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", m
     t = zt.KeccakTranscript()
     cfg = zt.draw_random_field(statement.public_input, t, 1, 4)
     dstatement = DeviceStatement.upload(cfg, statement, device)
-    z_f = z_to_device(cfg, _z_vector(statement, wit, ccs), device)
-    if mesh is None:
-        drivers = {"device_fs": _fs_checked, "per_round": prove_as_subprotocol_device}
-    else:
-        drivers = {"device_fs": functools.partial(_fs_checked, mesh=mesh),
-                   "per_round": functools.partial(prove_sharded, mesh=mesh)}
+    z_f = vector_to_field(cfg, int_vector(_z_vector(statement, wit, ccs)), device)
+    drivers = {"device_fs": _fs_checked, "per_round": prove_as_subprotocol_device}
     order = [name for i in range(turns) for name in
              (("device_fs", "per_round") if i % 2 == 0 else ("per_round", "device_fs"))]
     walls, results = {name: [] for name in drivers}, {}
@@ -789,7 +779,7 @@ def compare_drivers(label: str, fixture, turns: int = 2, device: str = "cuda", m
         SUMCHECKS.clear()
         FS_SPLITS.clear()
         w: list[float] = []
-        proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, tt, cfg,
+        proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, tt, cfg, mesh,
                                              sumcheck=synced(drivers[name], w))
         if len(w) != 2:
             raise AssertionError(f"{label}: the {name} run called its driver {len(w)} times")
@@ -1016,15 +1006,16 @@ def _prove_on_mesh(label: str, fixture, mesh) -> dict:
 def check_sharded(label: str, mesh, log_n: int, commit: str) -> None:
     """Both sumchecks ran their rounds down to HOST_TAIL entries a shard on
     the shards, and the commit ran in the layout ``commit``."""
-    from zinc_tpu_torch.sumcheck.executor import HOST_TAIL
+    from zinc_tpu_torch.sumcheck.executor import HOST_TAIL, SUMCHECKS
 
     d = mesh.size
     want = 0 if (1 << log_n) % d else log_n - (d.bit_length() - 1) - (HOST_TAIL.bit_length() - 1)
-    rounds = mesh.stats.get("sharded_rounds")
+    rounds = [r["sharded_rounds"] for r in list(SUMCHECKS)[-2:]]
     log(f"[{label}] sharded rounds per sumcheck {rounds} of {log_n} (want {want} each); "
         f"commit {mesh.stats.get('commit')}")
     if rounds != [want, want] or mesh.stats.get("commit") != [commit]:
-        raise AssertionError(f"{label}: the mesh was not used as expected: {mesh.stats}")
+        raise AssertionError(f"{label}: the mesh was not used as expected: {rounds}, "
+                             f"{mesh.stats}")
 
 
 def phase7(log_n: int, single: dict, card="cuda:0") -> dict:
@@ -1364,9 +1355,9 @@ def check_ranks(label: str, results: list[dict], single: dict, log_n: int, commi
             raise AssertionError(f"{who}'s proof differs from phase 3's")
         if res["transcript"] != results[0]["transcript"]:
             raise AssertionError(f"{who}'s transcript differs from rank 0's")
-        if res["stats"] != {"sharded_rounds": [want, want], "commit": [commit]}:
-            raise AssertionError(f"{who}: the mesh was not used as expected: {res['stats']}")
         recs = res["sumchecks"]
+        if res["stats"] != {"commit": [commit]} or [r["sharded_rounds"] for r in recs] != [want] * 2:
+            raise AssertionError(f"{who}: the mesh was not used as expected: {res['stats']}, {recs}")
         if ([r["driver"] for r in recs] != ["device_fs"] * 2
                 or any(r["fetches"] != fs_fetches(r, res["staged"]) for r in recs)):
             raise AssertionError(f"{who}: not two device-FS sumchecks of the owed fetches: {recs}")

@@ -37,6 +37,8 @@ RENAMED = {
     "sumcheck/pallas_exec.py": ("sumcheck/kernels.py", "sumcheck/executor.py", "csrc/generic.cu"),
     "ops/blake3_kernel.py": ("ops/blake3.py", "csrc/blake3.cu"),
     "utils/timing.py": ("timing.py",),
+    # the one-sync sharded driver: the device-FS entry's mesh= over the sharded executor
+    "parallel/fs.py": ("sumcheck/device_fs.py", "parallel/sumcheck.py"),
 }
 # a JAX module the port does not need, and why (ROADMAP, "Not to port")
 NOT_PORTED = {

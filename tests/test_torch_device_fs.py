@@ -32,10 +32,9 @@ from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.hashing import keccak
 from zinc_tpu_torch.ops import keccak_kernel as kk
 from zinc_tpu_torch.parallel import Mesh
-from zinc_tpu_torch.parallel.fs import prove_as_subprotocol_device_fs_sharded, wants_fs_sharded
 from zinc_tpu_torch.sumcheck import device_fs as dfs
 from zinc_tpu_torch.sumcheck.device import prove_as_subprotocol_device
-from zinc_tpu_torch.sumcheck.executor import SUMCHECKS
+from zinc_tpu_torch.sumcheck.executor import SUMCHECKS, make_executor
 from zinc_tpu_torch.transcript import KeccakTranscript
 
 Q = (1 << 255) + 95
@@ -340,11 +339,7 @@ def _port_fs(cfg, vals, nv, degree, comb, beta=None, mesh=None, prefix=b"device-
     t.absorb(prefix)
     SUMCHECKS.clear()
     tabs = _port_tables(cfg, vals)
-    if mesh is None:
-        out = dfs.prove_as_subprotocol_device_fs(t, cfg, tabs, nv, degree, comb, eq_beta=beta)
-    else:
-        out = prove_as_subprotocol_device_fs_sharded(t, cfg, tabs, nv, degree, comb, mesh,
-                                                     eq_beta=beta)
+    out = dfs.prove_as_subprotocol_device_fs(t, cfg, tabs, nv, degree, comb, eq_beta=beta, mesh=mesh)
     assert [(r["driver"], r["fetches"]) for r in SUMCHECKS] == [("device_fs", 1)]
     return _ints(*out, t, cfg)
 
@@ -420,19 +415,21 @@ def test_sharded_fs_driver_gives_the_single_device_bytes(shape, gruen):
     else:
         comb_spec, degree, beta = [(1, (0, 1)), (5, (2,))], 2, None
     comb = [(CFG.fp(c), t) for c, t in comb_spec]
-    assert wants_fs_sharded(CFG, comb, 1 << nv, mesh, 3 if gruen else None)
     sharded = _port_fs(CFG, vals, nv, degree, comb, beta, mesh)
-    assert mesh.stats["sharded_rounds"] == [2]
+    assert SUMCHECKS[-1]["sharded_rounds"] == 2
     assert SUMCHECKS[-1]["device_rounds"] == 4
     assert sharded == _port_fs(CFG, vals, nv, degree, comb, beta)
 
 
-def test_wants_fs_sharded_gates_the_shapes():
-    comb = [(CFG.one(), (0, 1))]
-    assert wants_fs_sharded(CFG, comb, 1 << 10, Mesh(["cpu"] * 4))
-    assert not wants_fs_sharded(CFG, comb, 1 << 10, Mesh(["cpu"] * 3))  # 3 does not divide 2^10
-    # Gruen needs a combination with eq last in every term
-    assert not wants_fs_sharded(CFG, comb, 1 << 10, Mesh(["cpu"] * 4), eq_idx=2)
+@pytest.mark.parametrize("k,blocks", [(4, 4), (3, 1)])
+def test_make_executor_shards_where_the_mesh_divides(k, blocks):
+    """``make_executor(..., mesh=)`` builds the executor over the mesh's
+    shards: 4 blocks on 4 shards at 2^10; on 3 shards, which do not divide
+    2^10, one block, whole, on the first device."""
+    tables = torch.zeros((2, 1 << 10, 2 * CFG.n64), dtype=torch.int32)
+    ex = make_executor(CFG, tables, 2, [(CFG.one(), (0, 1))], mesh=Mesh(["cpu"] * k))
+    assert ex.n_blocks == len(ex.blocks) == blocks and ex.size == 1 << 10
+    assert sum(b.shape[1] for b in ex.blocks) == 1 << 10
 
 
 def test_golden_2p10_through_the_fs_driver():
@@ -450,6 +447,24 @@ def test_golden_2p10_through_the_fs_driver():
     assert zt.serialize_proof(proof, cfg) == golden.read_bytes()
     assert [(r["driver"], r["device_rounds"], r["fetches"]) for r in SUMCHECKS] == \
         [("device_fs", 4, 1)] * 2
+
+
+def test_golden_2p10_on_a_mesh_the_shards_do_not_divide():
+    """ZincProver on 3 CPU shards, which do not divide 2^10, reproduces
+    tests/golden/proof_2p10.bin, both sumchecks on the device-FS driver
+    with one fetch and no sharded round (the tables stay whole on the
+    first device)."""
+    import zinc_tpu_torch as zt
+
+    _, ccs, st, wit = zt.dummy_ccs_of_size(1 << 10, random.Random(1234), int_bits=62)
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(st.public_input, t, 1, 4)
+    SUMCHECKS.clear()
+    proof = zt.ZincProver(zt.ZipTypes(1), mesh=Mesh(["cpu"] * 3)).prove(st, wit, t, ccs, cfg)
+    golden = Path(__file__).resolve().parent / "golden" / "proof_2p10.bin"
+    assert zt.serialize_proof(proof, cfg) == golden.read_bytes()
+    assert [(r["driver"], r["fetches"], r["sharded_rounds"]) for r in SUMCHECKS] == \
+        [("device_fs", 1, 0)] * 2
 
 
 def test_tables_at_most_host_tail_need_no_device_round():

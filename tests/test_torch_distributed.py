@@ -4,7 +4,7 @@ localhost, each with the local devices ["cpu", "cpu"], on
 ``hierarchical_mesh(2, 2)``, so every cross-shard step of the prove (the
 round sums, the hand-over, the commit's roots, the open's accumulators
 and column records) is an all-gather between the processes.  Both
-sumchecks run the device-FS driver (``parallel/fs.py``) on every rank,
+sumchecks run the device-FS driver (``sumcheck/device_fs.py``) on every rank,
 each rank's sponge squeezing over every shard's gathered sums, and are
 held against the per-round driver on the same tables.  The children
 import the port (and chip_smoke.py, which imports nothing else) only,
@@ -29,12 +29,11 @@ from tests.golden.gen import N, SEED
 from zinc_tpu_torch.parallel import (
     Mesh,
     ProcessGroup,
-    ShardedSumcheckExecutor,
     hierarchical_mesh,
     init_distributed,
-    wants_fs_sharded,
 )
 from zinc_tpu_torch.sumcheck.device_fs import start_fs
+from zinc_tpu_torch.sumcheck.executor import make_executor
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "proof_2p10.bin"
@@ -97,7 +96,7 @@ _WORKER = textwrap.dedent(
         proof, cfg, _ = prove(st, wit, ccs, mesh=mesh)
         digest = hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest()
         assert digest == chip_smoke.PATH_A_SHA256_2P10, digest
-        assert mesh.stats["sharded_rounds"] == [2, 2]
+        assert [r["sharded_rounds"] for r in SUMCHECKS] == [2, 2]
         print("PATH_A_OK", rank, group.calls, sumchecks(), flush=True)
         raise SystemExit(0)
 
@@ -110,7 +109,8 @@ _WORKER = textwrap.dedent(
     assert blob == zt.serialize_proof(host, cfg), "the two-process proof differs from the host oracle"
     assert blob == open({golden!r}, "rb").read(), "the two-process proof differs from the golden"
     zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(st, proof, zt.KeccakTranscript(), ccs, cfg)
-    assert mesh.stats == {{"sharded_rounds": [2, 2], "commit": ["2 row blocks x 2 column blocks"]}}
+    assert [r["sharded_rounds"] for r in SUMCHECKS] == [2, 2]
+    assert mesh.stats == {{"commit": ["2 row blocks x 2 column blocks"]}}
     assert mesh.group.calls > 0 and mesh.group.bytes > 0
     assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
     assert "zinc_tpu" not in sys.modules
@@ -193,7 +193,7 @@ def test_two_process_mesh_prove_runs_device_fs(proved):
 
 def test_two_process_drivers_agree(tmp_path):
     """On each rank, Spartan's two sumchecks of the golden circuit under the
-    sharded device-FS driver and under the per-round ``prove_sharded``, on
+    device-FS driver and under the per-round driver, both on the mesh, on
     the same tables from clones of one transcript: equal proofs, r_y, v and
     transcript states (chip_smoke.compare_drivers, which also checks each
     run's drivers and the device-FS runs' single fetch)."""
@@ -290,17 +290,14 @@ def _rank0_mesh(world: int = 2, backend: str = "gloo", device: str = "cpu") -> M
 
 
 def test_a_process_mesh_takes_the_device_fs_driver():
-    """``wants_fs_sharded`` decides by the shape alone, as the reference
-    does: a mesh over processes whose shards divide the entries takes the
-    device-FS driver (and one whose shards do not, does not); ``start_fs``
-    accepts its executor, whose blocks are rank 0's two of four."""
+    """A mesh over processes takes the device-FS driver: ``start_fs``
+    accepts its executor (``make_executor(..., mesh=)``), whose blocks are
+    rank 0's two of four."""
     mesh = _rank0_mesh()
     ccs, statement, wit, _, cfg = chip_smoke.setup(1 << 10, 5)
     comb = [(cfg.one(), (0, 1))]
-    assert wants_fs_sharded(cfg, comb, 1 << 10, mesh)
-    assert not wants_fs_sharded(cfg, comb, 6, mesh)
     tables = torch.zeros((2, 1 << 10, 2 * cfg.n64), dtype=torch.int32)
-    ex = ShardedSumcheckExecutor(cfg, tables, 2, comb, mesh)
+    ex = make_executor(cfg, tables, 2, comb, mesh=mesh)
     assert ex.group is mesh.group and ex.n_blocks == 4 and len(ex.blocks) == 2
     run = start_fs(zt.KeccakTranscript(), ex, 10, 2)
     assert run.n_dev == 4 and run.rs.shape == (4, 2 * cfg.n64)

@@ -83,6 +83,21 @@ def test_port_matches_jax_host_prover_192bit_2p8():
         verifier.verify(statement, proof, zt.KeccakTranscript(), ccs, cfg)
 
 
+def test_port_matches_jax_host_prover_64bit_2p8():
+    """A field of n64 = 1 (q < 2^64, where the int64 field map does not
+    apply): the device prover on the CPU maps z and the matrices by the
+    wide path, and its proof bytes equal the JAX host prover's; the
+    verifier accepts them."""
+    _, ccs, statement, wit = zt.dummy_ccs_of_size(1 << 8, random.Random(1234), int_bits=62)
+    t = zt.KeccakTranscript()
+    cfg = zt.draw_random_field(statement.public_input, t, 1, 1)
+    assert cfg.q < 1 << 64
+    proof = zt.ZincProver(zt.ZipTypes(1), device="cpu").prove(statement, wit, t, ccs, cfg)
+    assert zt.serialize_proof(proof, cfg) == _jax_host_proof(1 << 8, 1234, n64=1)
+    zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(statement, proof, zt.KeccakTranscript(),
+                                                         ccs, cfg)
+
+
 def test_entry_points_default_to_the_card():
     """With no ``device`` argument the prover, the verifier and the PCS
     verifier run on CUDA, on the "device" backend; without a card they raise

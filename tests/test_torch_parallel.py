@@ -36,11 +36,11 @@ from zinc_tpu_torch.parallel import (
     Mesh,
     ShardedSumcheckExecutor,
     commit_device_sharded,
-    commit_device_sharded_2d,
     local_mesh,
 )
-from zinc_tpu_torch.spartan_dev import z_to_device
-from zinc_tpu_torch.sumcheck.executor import HOST_TAIL, make_executor, prove_with_executor
+from zinc_tpu_torch.fields.integers import int_vector
+from zinc_tpu_torch.ops.field_map import vector_to_field
+from zinc_tpu_torch.sumcheck.executor import HOST_TAIL, SUMCHECKS, make_executor, prove_with_executor
 from zinc_tpu_torch.zip import pcs
 from zinc_tpu_torch.zip.code import DefaultLinearCodeSpec, RaaCode, ZipTypes
 from zinc_tpu_torch.zip.device import commit_device, open_device
@@ -60,6 +60,7 @@ def cpu_mesh_2d(r: int, c: int) -> Mesh:
 
 
 def _prove(ccs, statement, wit, mesh, n64=4):
+    SUMCHECKS.clear()
     t = zt.KeccakTranscript()
     cfg = zt.draw_random_field(statement.public_input, t, 1, n64)
     proof = zt.ZincProver(zt.ZipTypes(1), mesh=mesh).prove(statement, wit, t, ccs, cfg)
@@ -109,7 +110,7 @@ def test_mesh_prove_reproduces_golden_2p10(name, monkeypatch):
     assert merges == (b3.merge_plan(shape[1].bit_length() - 1) * shape[0] if split else [])
     d = mesh.size
     rounds = 0 if N % d else max(0, N.bit_length() - d.bit_length() - HOST_TAIL.bit_length() + 1)
-    assert mesh.stats["sharded_rounds"] == [rounds, rounds]
+    assert [r["sharded_rounds"] for r in SUMCHECKS] == [rounds, rounds]
     assert mesh.stats["commit"] == [commit]
     zt.ZincVerifier(zt.ZipTypes(1), device="cpu").verify(statement, proof, zt.KeccakTranscript(),
                                                          ccs, cfg)
@@ -123,7 +124,7 @@ def test_mesh_path_a_hashes_to_the_pinned_digest():
     ccs, statement, wit = chip_smoke.degree4_fixture(1 << 10, 1234)
     proof, cfg = _prove(ccs, statement, wit, mesh)
     assert hashlib.sha256(zt.serialize_proof(proof, cfg)).hexdigest() == chip_smoke.PATH_A_SHA256_2P10
-    assert mesh.stats["sharded_rounds"] == [2, 2]
+    assert [r["sharded_rounds"] for r in SUMCHECKS] == [2, 2]
 
 
 def _tables(cfg, nv, n_tab, seed):
@@ -216,7 +217,7 @@ def test_sharded_commit_matches_jax_sharded_commit(two_d):
     z = np.array(vals, np.int64)
     if two_d:
         jdata, jcomm = j_commit_sharded_2d(jpp, z, jcfg, j_local_mesh_2d(2, 2))
-        data, comm = commit_device_sharded_2d(pp, z, cfg, cpu_mesh_2d(2, 2))
+        data, comm = commit_device_sharded(pp, z, cfg, cpu_mesh_2d(2, 2))
     else:
         jdata, jcomm = j_commit_sharded(jpp, z, jcfg, j_local_mesh(4))
         data, comm = commit_device_sharded(pp, z, cfg, cpu_mesh(4))
@@ -240,9 +241,8 @@ def test_sharded_zip_linear_code_commit(mesh):
     rng = random.Random(12)
     z = np.array([rng.randrange(-(1 << 60), 1 << 60) for _ in range(1 << 8)], np.int64)
     cfg = FieldConfig(Q, 4)
-    commit = commit_device_sharded_2d if len(mesh.axis_names) == 2 else commit_device_sharded
     want, want_comm = commit_device(pp, z, cfg, CPU)
-    data, comm = commit(pp, z, cfg, mesh)
+    data, comm = commit_device_sharded(pp, z, cfg, mesh)
     assert "row blocks" in mesh.stats["commit"][0] and comm.roots == want_comm.roots
     enc, layers = _joined(data)
     want_enc, want_layers = _joined(want)
@@ -263,11 +263,10 @@ def test_sharded_open_matches_one_device(mesh):
     cfg = FieldConfig(Q, 4)
     point = [cfg.fp(rng.randrange(Q)) for _ in range(nv)]
     pp = _raa_params(n, 3, pcs, DefaultLinearCodeSpec, RaaCode, ZipTypes)
-    commit = commit_device_sharded_2d if len(mesh.axis_names) == 2 else commit_device_sharded
     proofs = []
-    for data, comm in (commit_device(pp, z, cfg, CPU), commit(pp, z, cfg, mesh)):
+    for data, comm in (commit_device(pp, z, cfg, CPU), commit_device_sharded(pp, z, cfg, mesh)):
         t = PcsTranscript()
-        open_device(pp, z, z_to_device(cfg, vals, CPU), data, point, cfg, t)
+        open_device(pp, z, vector_to_field(cfg, int_vector(vals), CPU), data, point, cfg, t)
         proofs.append((comm.roots, t.into_proof()))
     assert proofs[0] == proofs[1]
     from zinc_tpu_torch.poly.mle import DenseMleZ
@@ -285,7 +284,8 @@ def test_uneven_meshes_run_on_the_first_device():
     _, ccs, statement, wit = zt.dummy_ccs_of_size(N, random.Random(SEED), int_bits=62)
     proof, cfg = _prove(ccs, statement, wit, mesh)
     assert zt.serialize_proof(proof, cfg) == GOLDEN.read_bytes()
-    assert mesh.stats == {"sharded_rounds": [0, 0], "commit": ["one device"]}
+    assert [r["sharded_rounds"] for r in SUMCHECKS] == [0, 0]
+    assert mesh.stats == {"commit": ["one device"]}
 
 
 def test_mesh_shapes_and_local_meshes():

@@ -20,7 +20,8 @@ from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.sparse import PACKS, SparseMatrix
 from zinc_tpu_torch.fields import montgomery as fm
 from zinc_tpu_torch.ops import sparse as ps
-from zinc_tpu_torch.ops.field_map import i64_to_field_device, ints_to_field_device
+from zinc_tpu_torch.fields.integers import int_vector
+from zinc_tpu_torch.ops.field_map import vector_to_field
 from zinc_tpu_torch.poly.device import build_eq_table_device, fps_to_tensor
 
 Q = (1 << 255) + 95
@@ -81,9 +82,9 @@ def test_packed_coo_matches_jax(kind):
     if path == "flat":
         assert got[2].dtype == want[2].dtype == np.int64 and np.array_equal(got[2], want[2])
     elif kind == "field":
-        assert isinstance(got[2], list) and [x.m for x in got[2]] == [x.m for x in want[2]]
+        assert got[2].dtype == object and [x.m for x in got[2]] == [x.m for x in want[2]]
     else:
-        assert isinstance(got[2], list) and got[2] == want[2]
+        assert got[2].dtype == object and got[2].tolist() == want[2]
 
 
 @pytest.mark.parametrize("kind", ["dummy", "wide"])
@@ -118,7 +119,7 @@ def test_mat_vec_and_eval_table_match_jax(kind):
     rx = [CFG.fp(rng.randrange(Q)) for _ in range(10)]
     got_m, want_m = ps.upload_matrix(CFG, m, "cpu"), js.upload_matrix(JCFG, jm_)
 
-    z_f = i64_to_field_device(CFG, np.array(z, np.int64), "cpu")
+    z_f = vector_to_field(CFG, int_vector(z), "cpu")
     jz = j_i64(JCFG, np.array(z, np.int64))
     assert np.array_equal(fm.to_numpy(z_f), _words(jz))
 
@@ -150,7 +151,7 @@ def test_final_mle_evals_match_jax():
 def test_wide_integers_to_field():
     rng = random.Random(12)
     vals = [0, 1, -1, Q, -Q, Q - 1] + [rng.randrange(-(1 << 300), 1 << 300) for _ in range(30)]
-    got = fm.words_to_ints(fm.to_numpy(ints_to_field_device(CFG, vals, "cpu")))
+    got = fm.words_to_ints(fm.to_numpy(vector_to_field(CFG, int_vector(vals), "cpu")))
     assert got == [CFG.to_mont(v) for v in vals]
     want = fm.words_to_ints(_words(j_ints(JCFG, vals)))
     assert got == want
@@ -158,6 +159,32 @@ def test_wide_integers_to_field():
     fe = [CFG.fp(v) for v in vals]
     assert np.array_equal(fm.to_numpy(fps_to_tensor(fe, CFG, "cpu")),
                           fm.from_jax_limbs(j_fps_to_limbs([JCFG.fp(v) for v in vals], JCFG)))
+
+
+# name: (q, n64, values): int64 values above and at or below 2^64, and wide ones
+FIELD_ENTRY_CASES = {
+    "int64": (Q, 4, [0, 1, -1, -(1 << 63), (1 << 63) - 1, 5, -7]),
+    "int64_q_below_2^64": ((1 << 61) - 1, 1, [0, 1, -1, -(1 << 63), (1 << 63) - 1, (1 << 61) - 1]),
+    "wide": (Q, 4, [0, 1, -1, 1 << 63, -(1 << 63) - 1, Q + 3, -(1 << 300)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIELD_ENTRY_CASES))
+def test_vector_to_field_matches_jax(name):
+    """``vector_to_field`` on an ``int_vector``: int64 values take the
+    two's-complement map where q > 2^64 (the JAX package's
+    ``i64_to_field_device``) and the wide path where q ≤ 2^64, which the
+    JAX package's int64 map refuses; wide values take the wide path (its
+    ``ints_to_field_device``).  The residues equal the JAX package's and
+    each value's own Montgomery form."""
+    q, n64, vals = FIELD_ENTRY_CASES[name]
+    cfg, jcfg = FieldConfig(q, n64), JFieldConfig(q, n64)
+    vec = int_vector(vals)
+    assert vec.dtype == (object if name == "wide" else np.int64)
+    got = fm.to_numpy(vector_to_field(cfg, vec, "cpu"))
+    want = j_i64(jcfg, vec) if vec.dtype == np.int64 and q > 1 << 64 else j_ints(jcfg, vals)
+    assert np.array_equal(got, _words(want))
+    assert fm.words_to_ints(got) == [cfg.to_mont(v) for v in vals]
 
 
 def test_evaluate_mle_device_matches_jax():

@@ -25,8 +25,10 @@ from zinc_tpu_torch.fields.config import FieldConfig
 from zinc_tpu_torch.poly.mle import DenseMleZ
 from zinc_tpu_torch.zip.code import DefaultLinearCodeSpec, RaaCode, ZipTypes
 from zinc_tpu_torch.zip.transcript import PcsTranscript
-from zinc_tpu_torch.fields.integers import combine_rows_signed, i64_to_mag8, ints_to_mag8
-from zinc_tpu_torch.spartan_dev import z_to_device
+from zinc_tpu_torch.fields import montgomery as fm
+from zinc_tpu_torch.fields.integers import (combine_rows_signed, int_vector, vector_to_mag8,
+                                            vector_to_words)
+from zinc_tpu_torch.ops.field_map import vector_to_field
 from zinc_tpu_torch.zip import pcs
 from zinc_tpu_torch.ops import _cuda
 from zinc_tpu_torch.ops.blake3 import merkle_tree_device
@@ -97,7 +99,7 @@ def test_open_bytes_match_host_and_verify():
     t = PcsTranscript()
     point = [cfg.fp_from_mont(x) for x in point_ints]
     reset_records()
-    open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
+    open_device(pp, z, vector_to_field(cfg, int_vector(vals), "cpu"), data, point, cfg, t)
     proof = t.into_proof()
     assert proof == jt.into_proof()
     assert RECORDS == {"card": 0, "plain": 1, "bytes": 0, "staging": 0}
@@ -121,8 +123,8 @@ def test_combine_rows_signed_matches_jax():
     evals = np.array([[rng.randrange(-(1 << 62), 1 << 62) for _ in range(c)] for _ in range(r)],
                      np.int64)
     evals[0, 0], evals[1, 1] = -(1 << 63), (1 << 63) - 1
-    c8, cs = ints_to_mag8(coeffs, 8)
-    e8, es = i64_to_mag8(evals)
+    c8, cs = vector_to_mag8(int_vector(coeffs), 8)
+    e8, es = vector_to_mag8(evals, 8)
     got = combine_rows_signed(torch.from_numpy(c8), torch.from_numpy(cs),
                               torch.from_numpy(e8), torch.from_numpy(es), 16).numpy()
     jc8, jcs = j_ints_to_mag8(coeffs, 8)
@@ -134,6 +136,31 @@ def test_combine_rows_signed_matches_jax():
         exact = sum(coeffs[i] * int(evals[i, col]) for i in range(r)) % width
         assert int.from_bytes(got[col].astype("<u4").tobytes(), "little") == exact
         assert int.from_bytes(want[col].astype("<u2").tobytes(), "little") == exact
+
+
+@pytest.mark.parametrize("kind", ["int64", "wide"])
+def test_integer_entries_match_jax(kind):
+    """``vector_to_words`` and ``vector_to_mag8`` on an ``int_vector`` of
+    int64 values and of wide ones against the JAX package's pairs
+    (``i64_to_limbs``/``ints_to_limbs``, ``i64_to_mag8``/``ints_to_mag8``):
+    the same two's-complement words, magnitudes and signs."""
+    from zinc_tpu.fields.limbs import i64_to_limbs as j_i64_to_limbs
+    from zinc_tpu.fields.limbs import ints_to_limbs as j_ints_to_limbs
+
+    rng = random.Random(5)
+    bits = 62 if kind == "int64" else 200
+    vals = [0, 1, -1] + [rng.randrange(-(1 << bits), 1 << bits) for _ in range(29)]
+    vals += [-(1 << 63), (1 << 63) - 1] if kind == "int64" else [1 << 63, -(1 << 255)]
+    vec = int_vector(vals)
+    assert vec.dtype == (np.int64 if kind == "int64" else object)
+    n_words, n8 = 8, 32
+    words = vector_to_words(vec, n_words, "cpu").numpy().astype(np.uint32)
+    want = j_i64_to_limbs(vec, 2 * n_words) if kind == "int64" else j_ints_to_limbs(vals, 2 * n_words)
+    assert np.array_equal(words, fm.from_jax_limbs(want))
+    mags, signs = vector_to_mag8(vec, n8)
+    jmags, jsigns = j_i64_to_mag8(vec) if kind == "int64" else j_ints_to_mag8(vals, n8)
+    assert mags.dtype == np.uint8 and np.array_equal(mags, jmags)
+    assert np.array_equal(signs, jsigns)
 
 
 def _zlc_pair(n):
@@ -177,7 +204,7 @@ def test_zip_linear_code_commit_and_open_match_host():
         [v % width for v in jdata.rows]
     t = PcsTranscript()
     point = [cfg.fp_from_mont(x) for x in point_ints]
-    open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
+    open_device(pp, z, vector_to_field(cfg, int_vector(vals), "cpu"), data, point, cfg, t)
     proof = t.into_proof()
     assert proof == jt.into_proof()
     v = DenseMleZ(nv, vals).map_to_field(cfg).evaluate(point)
@@ -222,7 +249,7 @@ def test_single_row_layout_verifies():
     z = np.array(vals, np.int64)
     data, dcomm = commit_device(pp, z, cfg, "cpu")
     t = PcsTranscript()
-    open_device(pp, z, z_to_device(cfg, vals, "cpu"), data, point, cfg, t)
+    open_device(pp, z, vector_to_field(cfg, int_vector(vals), "cpu"), data, point, cfg, t)
     assert dcomm.roots == jcomm.roots and t.into_proof() == proof
 
 

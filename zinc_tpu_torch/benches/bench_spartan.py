@@ -20,7 +20,9 @@ import sys
 from ..ccs import dummy_ccs_of_size
 from ..prime import draw_random_field
 from ..spartan import spartan_verify
-from ..spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
+from ..fields.integers import int_vector
+from ..ops.field_map import vector_to_field
+from ..spartan_dev import DeviceStatement, spartan_prove_device
 from ..transcript import KeccakTranscript
 from ._common import device_line, emit, parse, wall_s
 
@@ -32,7 +34,7 @@ def run(log_n: int, device) -> list[dict]:
     if len(z_ccs) <= ccs.m:
         z_ccs = z_ccs + [0] * (ccs.m - len(z_ccs))
     ds = DeviceStatement.upload(cfg, statement, device)
-    z_f = z_to_device(cfg, z_ccs, device)
+    z_f = vector_to_field(cfg, int_vector(z_ccs), device)
 
     def prove():
         tp = KeccakTranscript()

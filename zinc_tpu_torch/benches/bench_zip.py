@@ -31,9 +31,9 @@ import numpy as np
 import torch
 
 from ..fields.config import FieldConfig
-from ..fields.integers import i64_to_words
+from ..fields.integers import vector_to_words
 from ..ops.blake3 import merkle_tree_device
-from ..ops.field_map import i64_to_field_device
+from ..ops.field_map import vector_to_field
 from ..poly.mle import DenseMleZ
 from ..transcript import KeccakTranscript
 from ..zip.code import DefaultLinearCodeSpec, RaaCode, ZipTypes
@@ -61,7 +61,7 @@ def run(log_n: int, device) -> list[dict]:
     t.absorb(b"bench")
     pp = setup(n, RaaCode(DefaultLinearCodeSpec(), n, t, ZT), ZT)
 
-    z_words = i64_to_words(torch.from_numpy(z_vals).to(device), 2 * ZT.n_words)
+    z_words = vector_to_words(z_vals, 2 * ZT.n_words, device)
     p1, p2 = (torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in pp.code.permutations())
     enc, encode_s = _warm_then_timed(lambda: _raa_encode_rows(
         z_words, pp.code.row_len, pp.code.repetition_factor, 2 * ZT.k_words, p1, p2), device)
@@ -71,7 +71,7 @@ def run(log_n: int, device) -> list[dict]:
     (data, comm), commit_s = _warm_then_timed(lambda: commit_device(pp, z_vals, cfg, device), device)
 
     point = [cfg.fp(rng.randrange(cfg.q)) for _ in range(log_n)]
-    z_f = i64_to_field_device(cfg, z_vals, device)
+    z_f = vector_to_field(cfg, z_vals, device)
 
     def open_():
         pt = PcsTranscript()

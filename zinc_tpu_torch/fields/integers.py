@@ -12,6 +12,12 @@ W words is a (..., W) int64 tensor of canonical u32 words (each in
   in float64: each limb product is < 2^16, a sum over R rows stays below
   2^53 for R < 2^37, so the contraction is exact in any summation order
   (float64 has no TF32 mode).  torch has no integer matmul on CUDA.
+
+A vector of integers on the host is one :func:`int_vector`: int64 when every
+value fits, else an object array of Python ints.  The converters take it and
+pick their int64 or wide path by its dtype (:func:`vector_to_words`,
+:func:`vector_to_mag8`, ``ops/field_map.vector_to_field``), so no caller
+decides which one it holds.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .montgomery import M32, carry
+from .montgomery import M32, carry, ints_to_words
 
 
 def sign_extend(words: torch.Tensor, out_w: int) -> torch.Tensor:
@@ -40,19 +46,28 @@ def cumsum_wrap(words: torch.Tensor, dim: int) -> torch.Tensor:
     return carry(scanned, words.shape[-1])
 
 
-def i64_to_words(values: torch.Tensor, n_words: int) -> torch.Tensor:
-    """int64 tensor → (…, n_words) two's-complement canonical words."""
-    lo = values & M32
-    hi = (values >> 32) & M32
-    return sign_extend(torch.stack([lo, hi], dim=-1), n_words)
+def int_vector(values) -> np.ndarray:
+    """A sequence of integers as one host vector: int64 when every value
+    fits (``np.fromiter``'s OverflowError is the range check), else an
+    object array of the values themselves (wide ints; field elements, which
+    ``np.fromiter`` refuses with a TypeError)."""
+    try:
+        return np.fromiter(values, np.int64, len(values))
+    except (OverflowError, TypeError):
+        out = np.empty(len(values), object)
+        out[:] = values
+        return out
 
 
-def ints_to_words_signed(values, n_words: int) -> np.ndarray:
-    """Python ints (any sign) → (B, n_words) two's-complement uint32 words."""
-    from .montgomery import ints_to_words
-
+def vector_to_words(values: np.ndarray, n_words: int, device) -> torch.Tensor:
+    """An :func:`int_vector` → (B, n_words) two's-complement canonical words
+    (int64) on ``device``."""
+    if values.dtype == np.int64:
+        v = torch.from_numpy(np.ascontiguousarray(values)).to(device)
+        return sign_extend(torch.stack([v & M32, (v >> 32) & M32], dim=-1), n_words)
     mod = 1 << (32 * n_words)
-    return ints_to_words([v % mod for v in values], n_words)
+    words = ints_to_words([v % mod for v in values.tolist()], n_words)
+    return torch.from_numpy(words.astype(np.int64)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -60,18 +75,17 @@ def ints_to_words_signed(values, n_words: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def ints_to_mag8(values: list[int], n8: int) -> tuple[np.ndarray, np.ndarray]:
-    """Python ints → (|v| in 8-bit limbs (B, n8) uint8, sign (B,) int8 ±1)."""
-    mags = np.frombuffer(b"".join(abs(v).to_bytes(n8, "little") for v in values), np.uint8)
-    signs = np.array([-1 if v < 0 else 1 for v in values], np.int8)
-    return mags.reshape(len(values), n8).copy(), signs
-
-
-def i64_to_mag8(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """int64 array → (8 × 8-bit magnitude limbs uint8, sign int8 ±1)."""
-    signs = np.where(values < 0, np.int8(-1), np.int8(1))
-    mags = np.abs(values.astype(np.int64)).astype(np.uint64)  # |−2^63| wraps to 2^63
-    return mags.astype("<u8").view(np.uint8).reshape(values.shape + (8,)), signs
+def vector_to_mag8(values: np.ndarray, n8: int) -> tuple[np.ndarray, np.ndarray]:
+    """An :func:`int_vector` (any shape for int64) → (|v| in 8-bit limbs
+    uint8, sign int8 ±1): 8 limbs for int64 values, else ``n8``."""
+    if values.dtype == np.int64:
+        signs = np.where(values < 0, np.int8(-1), np.int8(1))
+        mags = np.abs(values).astype(np.uint64)  # |−2^63| wraps to 2^63
+        return mags.astype("<u8").view(np.uint8).reshape(values.shape + (8,)), signs
+    ints = values.tolist()
+    mags = np.frombuffer(b"".join(abs(v).to_bytes(n8, "little") for v in ints), np.uint8)
+    signs = np.array([-1 if v < 0 else 1 for v in ints], np.int8)
+    return mags.reshape(len(ints), n8).copy(), signs
 
 
 def combine_rows_acc(

@@ -3,8 +3,10 @@
 For q > 2^64 a signed 64-bit value v = u − 2^64·s (u its two's-complement
 u64 view, s the sign bit) satisfies v ≡ u + s·((−2^64) mod q) (mod q), and
 the right side is < 2q: one conditional subtraction and one Montgomery
-product by R² finish the map.  Wider integers go through the generic
-signed-magnitude path (``mod_reduce_wide``).
+product by R² finish the map.  Wider integers, and every integer when
+q ≤ 2^64, go through the generic signed-magnitude path
+(``mod_reduce_wide``).  :func:`vector_to_field` takes an
+``fields.integers.int_vector`` and picks the path.
 """
 
 from __future__ import annotations
@@ -32,13 +34,6 @@ def _i64_to_field(ctx: DeviceField, values: torch.Tensor) -> torch.Tensor:
     return mont_mul(ctx, fm.narrow(v), fm.narrow(ctx.const("r2", values.device)).expand_as(v))
 
 
-def i64_to_field_device(cfg: FieldConfig, values: np.ndarray, device) -> torch.Tensor:
-    """int64 numpy array (B,) → (B, n32) Montgomery residues on ``device``."""
-    assert cfg.q > (1 << 64), "the i64 path requires q > 2^64"
-    v = torch.from_numpy(np.ascontiguousarray(values, dtype=np.int64)).to(device)
-    return _i64_to_field(device_field(cfg), v)
-
-
 def _wide_to_field(ctx: DeviceField, mag: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """|v| as canonical int64 words (B, W) and sign (B,) 0/1 → residues."""
     w = mag.shape[-1]
@@ -49,11 +44,16 @@ def _wide_to_field(ctx: DeviceField, mag: torch.Tensor, neg: torch.Tensor) -> to
     return torch.where(neg.bool().unsqueeze(-1), fm.mont_neg(ctx, m), m)
 
 
-def ints_to_field_device(cfg: FieldConfig, values: list[int], device) -> torch.Tensor:
-    """Arbitrary Python ints → Montgomery residues (host packing + device map)."""
+def vector_to_field(cfg: FieldConfig, values: np.ndarray, device) -> torch.Tensor:
+    """An ``int_vector`` (B,) → (B, n32) Montgomery residues on ``device``:
+    int64 values by the two's-complement map where q > 2^64, any others
+    by their magnitudes (host packing + device map)."""
     ctx = device_field(cfg)
-    mags = [abs(v) for v in values]
+    if values.dtype == np.int64 and cfg.q > 1 << 64:
+        return _i64_to_field(ctx, torch.from_numpy(np.ascontiguousarray(values)).to(device))
+    ints = values.tolist()
+    mags = [abs(v) for v in ints]
     width = max(ctx.n32, fm.words_for(max(mags).bit_length()) if mags else 1)
     mag = torch.from_numpy(fm.ints_to_words(mags, width).astype(np.int64)).to(device)
-    neg = torch.tensor([1 if v < 0 else 0 for v in values], dtype=torch.int64, device=device)
+    neg = torch.tensor([1 if v < 0 else 0 for v in ints], dtype=torch.int64, device=device)
     return _wide_to_field(ctx, mag, neg)

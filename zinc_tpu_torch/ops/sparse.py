@@ -23,7 +23,7 @@ from ..fields import montgomery as fm
 from ..fields.montgomery import DeviceField, device_field
 from ..poly.device import build_eq_table_device, limbs_to_fp
 from .field_kernels import mont_mul
-from .field_map import i64_to_field_device, ints_to_field_device
+from .field_map import vector_to_field
 
 
 @dataclass
@@ -49,15 +49,8 @@ def upload_matrix(cfg: FieldConfig, m: SparseMatrix, device, with_col_views: boo
     ``with_col_views=False`` skips the column-sorted copy, which only the
     prover's transposed products read."""
     rows_np, cols_np, vals = m.packed_coo()
-    return make_csr(rows_np, cols_np, vals_to_field_device(cfg, vals, device), m.n_rows, m.n_cols,
+    return make_csr(rows_np, cols_np, vector_to_field(cfg, vals, device), m.n_rows, m.n_cols,
                     device, with_col_views)
-
-
-def vals_to_field_device(cfg: FieldConfig, vals, device) -> torch.Tensor:
-    """A matrix's packed values (``packed_coo``) in the field, on ``device``."""
-    if isinstance(vals, np.ndarray):
-        return i64_to_field_device(cfg, vals, device)
-    return ints_to_field_device(cfg, vals, device)
 
 
 def _ends(sorted_idx: np.ndarray, n: int) -> np.ndarray:

@@ -6,12 +6,13 @@ block-sharded over the mesh (``sumcheck.py``), and the Zip codeword matrix
 is row-sharded, or rows × columns on a 2-D mesh (``zip.py``); proofs are
 byte-identical to one device's.  ``init_distributed`` and
 ``hierarchical_mesh`` give a ("host", "chip") mesh whose rows are processes
-of ``torch.distributed`` (``mesh.py``).  The sumchecks run with the
-Fiat-Shamir sponge on the mesh's first device (``fs.py``), one host sync
-a sumcheck; over processes every process runs the same sponge on the
-all-gathered sums.  ``MESH`` counts the copies between one process's
-shards and their bytes, reset at each prove (``mesh.py``).  Importing it
-loads no CUDA code and starts no process group.
+of ``torch.distributed`` (``mesh.py``).  The sumcheck drivers take the
+mesh (``mesh=``) and run with the Fiat-Shamir sponge on the mesh's first
+device (``sumcheck/device_fs.py``), one host sync a sumcheck; over
+processes every process runs the same sponge on the all-gathered sums.
+``MESH`` counts the copies between one process's shards and their bytes,
+reset at each prove (``mesh.py``).  Importing it loads no CUDA code and
+starts no process group.
 """
 
 from .mesh import (
@@ -26,9 +27,8 @@ from .mesh import (
     reset_mesh,
     shard_on_axis,
 )
-from .fs import prove_as_subprotocol_device_fs_sharded, wants_fs_sharded
-from .sumcheck import ShardedSumcheckExecutor, prove_sharded
-from .zip import commit_device_sharded, commit_device_sharded_2d
+from .sumcheck import ShardedSumcheckExecutor
+from .zip import commit_device_sharded
 
 __all__ = [
     "MESH",
@@ -42,9 +42,5 @@ __all__ = [
     "reset_mesh",
     "shard_on_axis",
     "ShardedSumcheckExecutor",
-    "prove_sharded",
-    "prove_as_subprotocol_device_fs_sharded",
-    "wants_fs_sharded",
     "commit_device_sharded",
-    "commit_device_sharded_2d",
 ]

@@ -167,10 +167,10 @@ class Mesh:
     other rows None, and the process runs only its own shards
     (``local_flat``, from flat index ``shard_offset``).
 
-    ``stats`` records what the sharded paths did with the mesh, so a caller
-    can show that the mesh was used: ``"sharded_rounds"`` gets each
-    sumcheck's count of rounds evaluated on more than one shard, ``"commit"``
-    the layout each commit ran in."""
+    ``stats["commit"]`` records the layout each commit ran in, so a caller
+    can show that the mesh was used; each sumcheck's rounds evaluated on
+    more than one shard are its ``sumcheck.executor.SUMCHECKS`` record's
+    ``"sharded_rounds"``."""
 
     def __init__(self, devices, axis_names=(AXIS,), group: ProcessGroup | None = None):
         src = np.asarray(devices, dtype=object)

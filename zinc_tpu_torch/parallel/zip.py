@@ -1,19 +1,20 @@
 """The Zip PCS commit and open with the codeword matrix sharded over a mesh.
 
-The port of ``zinc_tpu/parallel/zip.py``.  Encoding, leaf hashing and every
-Merkle level are row-independent, so the 1-D commit gives each shard a
-contiguous block of rows: it encodes them (RAA, or the ZipLinearCode's
-exact float64 product) and hashes them on its own device, and only the
-32-byte roots come back.  The 2-D commit ("r" × "c") shards rows over "r"
-and each row's interior over "c": the RAA code's two prefix sums become
-distributed scans (a local ``cumsum_wrap``, an exclusive scan of the c
-blocks' totals and an add, all mod 2^(64·k_words)), the permutations read
-the row gathered over "c", and each c block hashes its own subtree, whose
-roots are merged on the row block's first device.  The open is
-``zip/device.py:open_device`` given the row blocks (the reference's
-``open_device_sharded``): it sums each block's proximity accumulator and
-q₀-weighted row before the one carry and the one reduction mod q, and writes
-the blocks' column records in row order.
+The port of ``zinc_tpu/parallel/zip.py``, whose two commits are one entry
+here, :func:`commit_device_sharded`, which takes the layout from the mesh's
+axes.  Encoding, leaf hashing and every Merkle level are row-independent,
+so the 1-D commit gives each shard a contiguous block of rows: it encodes
+them (RAA, or the ZipLinearCode's exact float64 product) and hashes them on
+its own device, and only the 32-byte roots come back.  The 2-D commit
+("r" × "c") shards rows over "r" and each row's interior over "c": the RAA
+code's two prefix sums become distributed scans (a local ``cumsum_wrap``,
+an exclusive scan of the c blocks' totals and an add, all mod
+2^(64·k_words)), the permutations read the row gathered over "c", and each
+c block hashes its own subtree, whose roots are merged on the row block's
+first device.  The open is ``zip/device.py:open_device`` given the row
+blocks (the reference's ``open_device_sharded``): it sums each block's
+proximity accumulator and q₀-weighted row before the one carry and the one
+reduction mod q, and writes the blocks' column records in row order.
 
 On a mesh over several processes (``mesh.group``, a ("host", "chip") mesh)
 each process commits its own "host" rows, with the column split on its own
@@ -34,12 +35,11 @@ import torch
 
 from ..fields import montgomery as fm
 from ..fields.config import FieldConfig
-from ..fields.integers import cumsum_wrap, sign_extend
+from ..fields.integers import cumsum_wrap, sign_extend, vector_to_words
 from ..fields.montgomery import carry
 from ..ops.blake3 import merge_levels, merge_plan, merkle_tree_device
 from ..zip.device import (
     DeviceZipData,
-    _z_words,
     _zlc_dense_matrix,
     _zlc_encode_rows,
     commit_device,
@@ -49,14 +49,6 @@ from ..zip.device import (
 from ..timing import timed
 from ..zip.pcs import ZipCommitment, ZipParams
 from .mesh import Mesh, fetch_global
-
-
-def _row_values(z_values, n_blocks: int) -> list:
-    """The witness values cut into n_blocks equal row blocks."""
-    if isinstance(z_values, np.ndarray):
-        return list(z_values.reshape(n_blocks, -1))
-    step = len(z_values) // n_blocks
-    return [z_values[s * step : (s + 1) * step] for s in range(n_blocks)]
 
 
 def _all_roots(datas, mesh: Mesh) -> ZipCommitment:
@@ -71,17 +63,26 @@ def _all_roots(datas, mesh: Mesh) -> ZipCommitment:
     return ZipCommitment(roots)
 
 
-def commit_device_sharded(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Mesh):
-    """Row-sharded commit over the mesh's shards: (a DeviceZipData per row
-    block, the commitment); roots and layers equal ``commit_device``'s."""
+def commit_device_sharded(pp: ZipParams, z_values: np.ndarray, cfg: FieldConfig, mesh: Mesh):
+    """The commit of the ``int_vector`` z_values over ``mesh``: rows over a
+    1-D mesh's shards, rows × columns over a 2-D mesh's.  Returns (a
+    DeviceZipData per local row block, the commitment), or
+    ``commit_device``'s on the mesh's first device where the layout does
+    not split; roots and layers equal ``commit_device``'s."""
+    commit = _commit_2d if len(mesh.axis_names) == 2 else _commit_rows
+    return commit(pp, z_values, cfg, mesh)
+
+
+def _commit_rows(pp: ZipParams, z_values: np.ndarray, cfg: FieldConfig, mesh: Mesh):
+    """Row-sharded commit over the mesh's shards."""
     d = mesh.size
     if pp.num_rows % d:
         mesh.note("commit", "one device")
         return commit_device(pp, z_values, cfg, mesh.first)
     datas = []
-    mine = _row_values(z_values, d)[mesh.shard_offset :]
+    mine = list(z_values.reshape(d, -1))[mesh.shard_offset :]
     for vals, dev in zip(mine, mesh.local_flat):  # every shard queued first
-        enc = encode_rows(pp, _z_words(vals, pp.zt.n_words, dev))
+        enc = encode_rows(pp, vector_to_words(vals, 2 * pp.zt.n_words, dev))
         datas.append(DeviceZipData(fm.narrow(enc), merkle_tree_device(enc, pp.zt.k_words)))
     mesh.note("commit", f"{d} row blocks")
     return datas, _all_roots(datas, mesh)
@@ -120,22 +121,20 @@ def _encode_2d(pp: ZipParams, rows: list[torch.Tensor], chunk: int) -> list[torc
     return _dist_cumsum([g[:, p2[cut].to(g.device)] for g, cut in zip(regathered, cuts)], kw32)
 
 
-def commit_device_sharded_2d(pp: ZipParams, z_values, cfg: FieldConfig, mesh: Mesh):
+def _commit_2d(pp: ZipParams, z_values: np.ndarray, cfg: FieldConfig, mesh: Mesh):
     """Commit over an ("r", "c") mesh: rows over "r", each row's codeword
-    over "c".  Returns (a DeviceZipData per local "r" block, on that block's
-    first device, the commitment); roots and layers equal
-    ``commit_device``'s."""
+    over "c"; each row block's data on its first device."""
     r_size, c_size = mesh.devices.shape
     cw = pp.code.codeword_len()
     chunk = cw // c_size
     if (pp.num_rows % r_size or cw % c_size or chunk & (chunk - 1) or c_size & (c_size - 1)):
         mesh.note("commit", "one device")
         return commit_device(pp, z_values, cfg, mesh.first)
-    row_vals = _row_values(z_values, r_size)
+    row_vals = z_values.reshape(r_size, -1)
     local = [(row_vals[r], mesh.devices[r]) for r in mesh.local_rows]
     subtrees = []
     for vals, devs in local:  # every shard queued first
-        enc = _encode_2d(pp, [_z_words(vals, pp.zt.n_words, dev) for dev in devs], chunk)
+        enc = _encode_2d(pp, [vector_to_words(vals, 2 * pp.zt.n_words, dev) for dev in devs], chunk)
         subtrees.append([(e, merkle_tree_device(e, pp.zt.k_words)) for e in enc])
     datas = []
     for subs, (_, devs) in zip(subtrees, local):

@@ -42,26 +42,22 @@ class SparseMatrix:
         every proof, so it is built once per matrix.  The pass is flat: the
         row indices repeat ``arange`` by the row lengths, and the columns and
         values come from one chained list of the ``(value, col)`` pairs,
-        with no Python work per row.  ``vals`` is an int64 ndarray when every
-        (integer) value fits, else the original value list (wide ints,
-        field elements).  ``PACKS`` counts the packings by path."""
+        with no Python work per row.  ``vals`` is the values'
+        ``fields.integers.int_vector``: int64 when every (integer) value
+        fits, else an object array (wide ints, field elements).  ``PACKS``
+        counts the packings by path."""
         if self._packed is None:
             import numpy as np
+
+            from .fields.integers import int_vector
 
             n = len(self.rows)
             lens = np.fromiter(map(len, self.rows), np.int64, n)
             flat = list(chain.from_iterable(self.rows))
             rows_np = np.repeat(np.arange(n, dtype=np.int32), lens)
             cols_np = np.fromiter(map(itemgetter(1), flat), np.int32, len(flat))
-            vals: object = None
-            if not flat or isinstance(flat[0][0], int):
-                try:  # fromiter's OverflowError is the int64 range check
-                    vals = np.fromiter(map(itemgetter(0), flat), np.int64, len(flat))
-                except (OverflowError, TypeError):
-                    pass
-            if vals is None:
-                vals = [v for v, _ in flat]
-            PACKS["flat" if isinstance(vals, np.ndarray) else "fallback"] += 1
+            vals = int_vector(list(map(itemgetter(0), flat)))
+            PACKS["flat" if vals.dtype == np.int64 else "fallback"] += 1
             self._packed = (rows_np, cols_np, vals)
         return self._packed
 

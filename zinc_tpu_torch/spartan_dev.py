@@ -2,21 +2,21 @@
 
 The port of ``zinc_tpu/spartan_dev.py``.  The witness-sized state lives on
 the device: the field-projected z, the Mz tables, the eq tables and the
-sumcheck folds.  Each sumcheck takes the driver the reference picks
-(``spartan_dev.py:100-137``): on one device, or on a mesh (in one
-process or over several) where ``wants_fs_sharded`` holds,
-device-resident Fiat-Shamir (``sumcheck/device_fs.py``,
-``parallel/fs.py``), one host sync a sumcheck; on a mesh whose shards do
-not divide the hypercube, the per-round sharded executor
-(``parallel/sumcheck.py``), one sync a round.  The folded values double as V_s (sumcheck 1) and as the PCS
-opening value z̃(r_y) (sumcheck 2).
+sumcheck folds.  Each sumcheck runs device-resident Fiat-Shamir
+(``sumcheck/device_fs.py``), one host sync a sumcheck, on one device or
+on a mesh (in one process or over several), whose executor shards the
+tables where the mesh's shards divide the hypercube and keeps them whole
+on its first device where they do not (``parallel/sumcheck.py``).  The
+reference (``spartan_dev.py:100-137``) takes its per-round sharded
+driver on the second kind of mesh; the port needs no such fork.  The
+folded values double as V_s (sumcheck 1) and as the PCS opening value
+z̃(r_y) (sumcheck 2).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from .ccs import CCS, Statement
@@ -26,8 +26,8 @@ from .transcript import KeccakTranscript
 from .fields import montgomery as fm
 from .fields.montgomery import device_field
 from .ops.field_kernels import mont_mul
-from .ops.field_map import i64_to_field_device, ints_to_field_device
-from .ops.sparse import eval_table_device, make_csr, mat_vec_mul_device, vals_to_field_device
+from .ops.field_map import vector_to_field
+from .ops.sparse import eval_table_device, make_csr, mat_vec_mul_device
 from .poly.device import _eq_table_device, fps_to_tensor
 from .sumcheck.device import wants_gruen
 from .sumcheck.device_fs import prove_as_subprotocol_device_fs
@@ -49,16 +49,10 @@ class DeviceStatement:
             with timed("prove.upload.coo"):
                 rows, cols, vals = m.packed_coo()
             with timed("prove.upload.field_map"):
-                vals_f = vals_to_field_device(cfg, vals, device)
+                vals_f = vector_to_field(cfg, vals, device)
             with timed("prove.upload.csr"):
                 matrices.append(make_csr(rows, cols, vals_f, m.n_rows, m.n_cols, device))
         return DeviceStatement(matrices=matrices, cfg=cfg)
-
-
-def z_to_device(cfg: FieldConfig, z_ccs: list[int], device) -> torch.Tensor:
-    if all(-(1 << 63) <= v < (1 << 63) for v in z_ccs):
-        return i64_to_field_device(cfg, np.array(z_ccs, np.int64), device)
-    return ints_to_field_device(cfg, z_ccs, device)
 
 
 def _sc1_setup(cfg, mats, z_f, beta_t, with_eq: bool) -> torch.Tensor:
@@ -95,29 +89,12 @@ def spartan_prove_device(
     With a ``mesh`` (``parallel.Mesh``), the setups run where z_f lies (the
     mesh's first device) and both sumchecks run block-sharded over the
     mesh's shards; the transcript is identical.  ``sumcheck`` replaces the
-    driver of both sumchecks (a function with the arguments and returns of
-    ``sumcheck.device.prove_as_subprotocol_device``), so that a caller can
-    hold one driver against another on the same tables."""
+    driver of both sumchecks (``sumcheck.device.prove_as_subprotocol_device``
+    or a function with its arguments, ``mesh`` included, and returns), so
+    that a caller can hold one driver against another on the same tables."""
     device = z_f.device
     c_f = [cfg.fp(ci) for ci in ccs.c]
-
-    def default(transcript, cfg, tables, nvars, degree, comb, eq_beta=None):
-        """(proof, randomness, finals) through the driver for this mesh."""
-        if mesh is None:
-            proof, randomness, mles = prove_as_subprotocol_device_fs(
-                transcript, cfg, tables, nvars, degree, comb, eq_beta=eq_beta)
-            return proof, randomness, [m[0] for m in mles]
-        from .parallel.fs import prove_as_subprotocol_device_fs_sharded, wants_fs_sharded
-        from .parallel.sumcheck import prove_sharded
-
-        eq_idx = None if eq_beta is None else tables.shape[0]
-        if wants_fs_sharded(cfg, comb, tables.shape[1], mesh, eq_idx):
-            proof, randomness, mles = prove_as_subprotocol_device_fs_sharded(
-                transcript, cfg, tables, nvars, degree, comb, mesh, eq_beta=eq_beta)
-            return proof, randomness, [m[0] for m in mles]
-        return prove_sharded(transcript, cfg, tables, nvars, degree, comb, mesh, eq_beta=eq_beta)
-
-    prove = sumcheck or default
+    prove = sumcheck or prove_as_subprotocol_device_fs
 
     # ---- sumcheck 1 -------------------------------------------------------
     beta_s = squeeze_beta_challenges(transcript, ccs.s, cfg)
@@ -131,7 +108,7 @@ def spartan_prove_device(
     with timed("spartan.sumcheck1"):
         proof1, r_x, finals1 = prove(
             transcript, cfg, tables, ccs.s, ccs.d + 1, comb1,
-            eq_beta=beta_s if gruen1 else None,
+            eq_beta=beta_s if gruen1 else None, mesh=mesh,
         )
     v_s = finals1[: len(dstatement.matrices)]
 
@@ -144,7 +121,7 @@ def spartan_prove_device(
         )
     comb2 = [(cfg.one(), (0, 1))]
     with timed("spartan.sumcheck2"):
-        proof2, r_y, finals2 = prove(transcript, cfg, tables2, ccs.s, 2, comb2)
+        proof2, r_y, finals2 = prove(transcript, cfg, tables2, ccs.s, 2, comb2, mesh=mesh)
     v = finals2[1]
 
     return SpartanProof(proof1, proof2, v_s), r_y, v

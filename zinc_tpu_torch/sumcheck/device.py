@@ -4,11 +4,11 @@ The port of ``zinc_tpu/sumcheck/device.py``'s table-level entry.  Each
 round runs the fold (K2) and the round evaluation (K3, or K4 for Gruen) on
 the device, fetches the round's sums (the one sync of the round), and lets
 the host ``KeccakTranscript`` absorb the d+1 evaluations and squeeze r,
-exactly as ``zinc_tpu/sumcheck/prover.py:87-118`` does.  The main path
-takes ``device_fs.py`` instead (the sponge on the device, one sync a
-sumcheck, the same bytes, on meshes over processes too); this driver
-stays for the bench of path B and for the tests, which hold the two
-drivers equal.
+exactly as ``zinc_tpu/sumcheck/prover.py:87-118`` does.  It drives the
+benchmark's sumcheck cell.  The prover takes ``device_fs.py`` instead (the
+sponge on the device, one sync a sumcheck, the same bytes, on meshes over
+processes too); the tests and ``chip_smoke.compare_drivers`` hold the two
+drivers equal, on one device and on a mesh.
 
 Gruen (sumcheck 1): the eq MLE never enters the fold.  Round j evaluates
 s_j(t) = pref_j · c_j(t) · Σ_i coeff_i · Σ_p E_j[p] · Π_{m∈S_i} M_m(t, p)
@@ -47,11 +47,13 @@ def prove_as_subprotocol_device(
     degree: int,
     comb,
     eq_beta: list[Fp] | None = None,  # Gruen: tables EXCLUDE eq (index n_mles)
+    mesh=None,  # parallel.Mesh: the executor's blocks are its shards
 ):
-    """Transcript-identical sumcheck.  Returns (proof, randomness, finals):
+    """Transcript-identical sumcheck on the tables' device, or over ``mesh``
+    (``executor.make_executor``).  Returns (proof, randomness, finals):
     finals are the fully folded values of every MLE (the eq MLE last when
     ``eq_beta`` is given)."""
-    ex = make_executor(cfg, tables, degree, comb, eq_beta)
+    ex = make_executor(cfg, tables, degree, comb, eq_beta, mesh)
     assert ex.size == 1 << nvars, (ex.size, nvars)
     proof, randomness = prove_with_executor(transcript, ex, nvars, degree, cfg)
     return proof, randomness, ex.final_values()

@@ -16,6 +16,31 @@ transcript and finishes the tail (:func:`_host_tail`, as
 ``device_fs.py:506-537``).  Transcripts, proofs and final values are those
 of the host prover, bit for bit.
 
+**On a mesh** (``mesh=``) the executor's blocks are the mesh's shards
+(``parallel/sumcheck.py``).  Each shard folds its block by the challenge on
+the card and evaluates it, launching on its own device; the round's D sum
+buffers go to the mesh's first device by device-to-device copies, where
+``fs_round`` adds them mod q, forms the round's values and squeezes; and r
+goes back to every shard the same way before the shard's next fold reads
+it.  None of this passes through the host, and torch orders every
+cross-device copy after the producing stream's work and before the
+consuming stream's.  In one process the sponge runs once, on the first
+device, and its r is copied out (the reference replicates it on every
+device after a psum).  Once a shard's block has at most ``HOST_TAIL``
+entries the blocks are joined on the first device (a ``torch.cat`` on the
+card), and its device rounds go on there until the one fetch.  Where the
+shards do not divide the hypercube the tables stay whole on the first
+device, and the rounds are one device's.
+
+Over processes (``mesh.group``) each process does this for its own shards,
+and each round all-gathers the processes' stacked sums in rank order onto
+its first device (``ProcessGroup.all_gather_stacked``) before
+``fs_round``; every process then runs the same sponge on the same sums, as
+the reference replicates it after its psum, so r needs no broadcast.  The
+hand-over all-gathers the blocks the same way.  Under NCCL all of it stays
+on the cards; gloo stages a card's tensors through the host, and each
+staged copy counts as a fetch in ``executor.SUMCHECKS``.
+
 The sponge's fill level needs no device state: every absorb has a size the
 host knows, so it follows the sizes (a frame is 2·nbytes + 4 bytes, a
 round absorbs (d+1) frames, the 34-byte ratchet and r's frame).
@@ -296,19 +321,6 @@ def finish_fs(transcript: KeccakTranscript, run: FsRun):
                           run.nvars, run.degree, ex.comb)
 
 
-def prove_fs_with_executor(transcript: KeccakTranscript, ex: DeviceSumcheckExecutor, nvars: int,
-                           degree: int):
-    """The device-FS sumcheck over ``ex``'s blocks (one device, or a mesh's
-    shards, in one process or over several): (proof, randomness, folded
-    host MLEs)."""
-    with timed("sumcheck.fs.start"):
-        run = start_fs(transcript, ex, nvars, degree)
-    with timed("sumcheck.fs.enqueue"):
-        enqueue_fs_rounds(run)
-    with timed("sumcheck.fs.finish"):
-        return finish_fs(transcript, run)
-
-
 def prove_as_subprotocol_device_fs(
     transcript: KeccakTranscript,
     cfg: FieldConfig,
@@ -317,14 +329,23 @@ def prove_as_subprotocol_device_fs(
     degree: int,
     comb,
     eq_beta: list[Fp] | None = None,  # Gruen: tables EXCLUDE eq (index n_mles)
+    mesh=None,  # parallel.Mesh: the executor's blocks are its shards
 ):
     """Transcript-identical sumcheck with device-resident Fiat-Shamir on the
-    tables' device.  Returns (proof, randomness, folded MLEs: one list of a
-    single value each, the eq MLE last for Gruen) like the reference, and
-    leaves ``transcript`` as the host prover would."""
-    ex = make_executor(cfg, tables, degree, comb, eq_beta)
+    tables' device, or over ``mesh`` (``executor.make_executor``), and
+    leaves ``transcript`` as the host prover would.  Returns (proof,
+    randomness, finals) like the per-round driver: finals are the fully
+    folded values of every MLE, the eq MLE last for Gruen (the reference
+    returns the folded MLEs)."""
+    ex = make_executor(cfg, tables, degree, comb, eq_beta, mesh)
     assert ex.size == 1 << nvars, (ex.size, nvars)
-    return prove_fs_with_executor(transcript, ex, nvars, degree)
+    with timed("sumcheck.fs.start"):
+        run = start_fs(transcript, ex, nvars, degree)
+    with timed("sumcheck.fs.enqueue"):
+        enqueue_fs_rounds(run)
+    with timed("sumcheck.fs.finish"):
+        proof, randomness, mles = finish_fs(transcript, run)
+    return proof, randomness, [m[0] for m in mles]
 
 
 def _host_tail(

@@ -319,11 +319,18 @@ class DeviceSumcheckExecutor:
         return [m[0] for m in self._host_mles]
 
 
-def make_executor(cfg: FieldConfig, tables, degree: int, comb, eq_beta=None) -> DeviceSumcheckExecutor:
-    """The executor for these tables.  The reference picks its Pallas or XLA
-    executor by platform; here the kernels' wrappers pick by the tables'
-    device, so there is one executor."""
-    return DeviceSumcheckExecutor(cfg, tables, degree, comb, eq_beta)
+def make_executor(cfg: FieldConfig, tables, degree: int, comb, eq_beta=None,
+                  mesh=None) -> DeviceSumcheckExecutor:
+    """The executor for these tables: with a ``mesh`` (``parallel.Mesh``)
+    over its shards, which keep the tables whole on the mesh's first device
+    where they do not divide the hypercube (``parallel/sumcheck.py``).  The
+    reference picks its Pallas or XLA executor by platform; here the
+    kernels' wrappers pick by the tables' device."""
+    if mesh is None:
+        return DeviceSumcheckExecutor(cfg, tables, degree, comb, eq_beta)
+    from ..parallel.sumcheck import ShardedSumcheckExecutor
+
+    return ShardedSumcheckExecutor(cfg, tables, degree, comb, mesh, eq_beta)
 
 
 def prove_with_executor(

@@ -24,8 +24,6 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass
 
-import numpy as np
-
 from .ccs import CCS, Statement, Witness
 from .fields.config import FieldConfig, Fp
 from .poly.mle import DenseMleZ
@@ -118,45 +116,39 @@ class ZincProver:
             return prove(statement, wit, transcript, ccs, cfg)
 
     def _prove_device(self, statement, wit, transcript, ccs, cfg) -> ZincProof:
+        from .fields.integers import int_vector
+        from .ops.field_map import vector_to_field
         from .parallel.mesh import reset_mesh
-        from .spartan_dev import DeviceStatement, spartan_prove_device, z_to_device
+        from .spartan_dev import DeviceStatement, spartan_prove_device
         from .zip.device import commit_device, open_device
 
         mesh = self.mesh
         reset_mesh()
 
         with timed("prove.z"):
-            z_ccs = _z_vector(statement, wit, ccs)
+            z = int_vector(_z_vector(statement, wit, ccs))
         with timed("prove.upload", sync=True):
             dstatement = DeviceStatement.upload(cfg, statement, self.device)
             with timed("prove.upload.z"):
-                z_f = z_to_device(cfg, z_ccs, self.device)
+                z_f = vector_to_field(cfg, z, self.device)
         with timed("prove.spartan", sync=True):
             spartan_proof, r_y, v = spartan_prove_device(dstatement, z_f, ccs, transcript, cfg, mesh)
 
         with timed("prove.code_setup"):
             code = RaaCode(self.lc_spec, ccs.m, transcript, self.zt)
             pp = setup(ccs.m, code, self.zt)
-            if all(-(1 << 63) <= x < (1 << 63) for x in z_ccs):
-                z_vals = np.array(z_ccs, np.int64)
-            else:
-                z_vals = z_ccs
         with timed("prove.zip_commit", sync=True):
             if mesh is None:
-                data, z_comm = commit_device(pp, z_vals, cfg, self.device)
-            elif len(mesh.axis_names) == 2:
-                from .parallel.zip import commit_device_sharded_2d
-
-                data, z_comm = commit_device_sharded_2d(pp, z_vals, cfg, mesh)
+                data, z_comm = commit_device(pp, z, cfg, self.device)
             else:
                 from .parallel.zip import commit_device_sharded
 
-                data, z_comm = commit_device_sharded(pp, z_vals, cfg, mesh)
+                data, z_comm = commit_device_sharded(pp, z, cfg, mesh)
         with timed("prove.zip_open", sync=True):
             pcs_transcript = PcsTranscript()
             # row blocks spread over processes are opened with the mesh's collectives
             group = mesh.group if mesh is not None and isinstance(data, list) else None
-            open_device(pp, z_vals, z_f, data, r_y, cfg, pcs_transcript, group)
+            open_device(pp, z, z_f, data, r_y, cfg, pcs_transcript, group)
         zip_proof = ZipProof(z_comm=z_comm, v=v, pcs_proof=pcs_transcript.into_proof())
         return ZincProof(spartan_proof=spartan_proof, zip_proof=zip_proof)
 

@@ -31,11 +31,10 @@ from ..fields.integers import (
     combine_acc_to_words,
     combine_rows_acc,
     cumsum_wrap,
-    i64_to_mag8,
-    i64_to_words,
-    ints_to_mag8,
-    ints_to_words_signed,
+    int_vector,
     sign_extend,
+    vector_to_mag8,
+    vector_to_words,
 )
 from ..fields.montgomery import carry, device_field
 from ..ops.blake3 import merkle_tree_device
@@ -64,14 +63,6 @@ class DeviceZipData:
 
     enc: torch.Tensor  # (R, cw, 2·k_words) int32 codeword words
     layers: list  # [(R, n_level, 8) int64 digest words], leaves first
-
-
-def _z_words(z_values, n_words64: int, device) -> torch.Tensor:
-    nw = 2 * n_words64
-    if isinstance(z_values, np.ndarray) and z_values.dtype == np.int64:
-        return i64_to_words(torch.from_numpy(z_values).to(device), nw)
-    words = ints_to_words_signed(list(z_values), nw)
-    return torch.from_numpy(words.astype(np.int64)).to(device)
 
 
 def _raa_encode_rows(z_words: torch.Tensor, row_len: int, rep: int, kw32: int, p1, p2):
@@ -129,9 +120,10 @@ def roots_of(layers) -> list[bytes]:
     return [top[r].tobytes() for r in range(top.shape[0])]
 
 
-def commit_device(pp: ZipParams, z_values, cfg: FieldConfig, device):
-    """Device commit; trees and roots byte-identical to ``zip.pcs.commit``."""
-    z_words = _z_words(z_values, pp.zt.n_words, device)
+def commit_device(pp: ZipParams, z_values: np.ndarray, cfg: FieldConfig, device):
+    """Device commit of the ``int_vector`` z_values; trees and roots
+    byte-identical to ``zip.pcs.commit``."""
+    z_words = vector_to_words(z_values, 2 * pp.zt.n_words, device)
     assert z_words.shape[0] == pp.num_rows * pp.code.row_len
     enc = encode_rows(pp, z_words)
     layers = merkle_tree_device(enc, pp.zt.k_words)
@@ -149,7 +141,7 @@ def _row_blocks(x, devices, group=None) -> list[torch.Tensor]:
     blocks, block s on devices[s].  Over several shards this is the span
     ``mesh.scatter``, and a tensor's blocks (it lies on devices[0]) that
     leave it count in ``parallel.mesh.MESH``; a host array's are uploads."""
-    from_host = isinstance(x, np.ndarray)
+    from_host = not isinstance(x, torch.Tensor)
     x = torch.from_numpy(x) if from_host else x
     world, rank = (1, 0) if group is None else (group.world, group.rank)
     mine = x.chunk(len(devices) * world)[rank * len(devices) : (rank + 1) * len(devices)]
@@ -177,7 +169,7 @@ def _summed(parts, home, group) -> torch.Tensor:
 
 def open_device(
     pp: ZipParams,
-    z_values: np.ndarray,  # the polynomial's integer evaluations
+    z_values: np.ndarray,  # the polynomial's integer evaluations (an int_vector)
     z_f: torch.Tensor,  # (m, n32) field projection of z (Montgomery)
     data,  # DeviceZipData, or a list of them: the codeword's row blocks, one per shard
     point: list,
@@ -220,14 +212,11 @@ def open_device(
     with timed("prove.zip_open.combine"):
         combined_rows = []
         if prox_coeffs:
-            if isinstance(z_values, np.ndarray) and z_values.dtype == np.int64:
-                e_mag8, e_sign = i64_to_mag8(z_values)
-            else:
-                e_mag8, e_sign = ints_to_mag8(list(z_values), 8 * pp.zt.n_words)
+            e_mag8, e_sign = vector_to_mag8(z_values, 8 * pp.zt.n_words)
             e_mag8 = _row_blocks(e_mag8.reshape(num_rows, row_len, -1), devices, group)
             e_sign = _row_blocks(e_sign.reshape(num_rows, row_len), devices, group)
             for coeffs in prox_coeffs:
-                c_mag8, c_sign = ints_to_mag8(coeffs, 8 * pp.zt.n_words)
+                c_mag8, c_sign = vector_to_mag8(int_vector(coeffs), 8 * pp.zt.n_words)
                 accs = [combine_rows_acc(cm, cs, em, es) for cm, cs, em, es in zip(
                     _row_blocks(c_mag8, devices, group), _row_blocks(c_sign, devices, group),
                     e_mag8, e_sign)]

@@ -26,7 +26,7 @@ from ..poly.mle import DenseMleZ, build_eq_x_r_vec
 from ..zip.merkle import MerkleTree, int_to_leaf_bytes, verify_merkle_path
 from ..zip.transcript import PcsTranscript
 from ..fields import montgomery as fm
-from ..fields.integers import combine_rows_signed, ints_to_mag8, ints_to_words_signed
+from ..fields.integers import combine_rows_signed, int_vector, vector_to_mag8, vector_to_words
 from ..ops._cuda import target_device
 from ..ops.field_kernels import mont_mul
 from ..ops.field_map import _wide_to_field
@@ -203,13 +203,13 @@ def _device_checks(pp, cfg, device, mag32, neg, prox, cols, q_0, encoded_f) -> l
     eval_sign = (1 - 2 * neg_d).transpose(0, 1)
     out_words = 2 * pp.zt.m_words
     for coeffs, encoded in prox:
-        c_mag8, c_sign = ints_to_mag8(coeffs, 8 * pp.zt.n_words)
+        c_mag8, c_sign = vector_to_mag8(int_vector(coeffs), 8 * pp.zt.n_words)
         combined = combine_rows_signed(
             torch.from_numpy(c_mag8).to(device), torch.from_numpy(c_sign).to(device),
             eval_mag8, eval_sign, out_words,
         )
-        expected = ints_to_words_signed([encoded[c] for c in cols.tolist()], out_words)
-        ok = torch.equal(combined, torch.from_numpy(expected.astype(np.int64)).to(device))
+        expected = vector_to_words(int_vector([encoded[c] for c in cols.tolist()]), out_words, device)
+        ok = torch.equal(combined, expected)
         out.append((ok, "proximity failure (integer phase)"))
     # field phase: Σ_r q0_r·f(v_{r,c}) against the field re-encode
     ctx = fm.device_field(cfg)
